@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels and their plain PyTorch versions.
+
+Each op dispatches on the device of its tensors: CUDA tensors launch the
+kernel (built from ``csrc/`` at first use) with its weights packed into the
+layout it reads (``pack_sampler``, ``pack_ioc``; once per param tree where
+the caller keeps them), CPU tensors take the plain version. There is no fallback from one to the other: a kernel that does not
+build or launch raises.
+"""
+
+from desire_tpu_torch.ops._build import LAUNCHES, reset_launch_counts
+from desire_tpu_torch.ops.ioc_fused import ioc_refine, pack_ioc
+from desire_tpu_torch.ops.sgm_fused import pack_sampler, sgm_sample_decode
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "ioc_refine", "pack_ioc",
+           "pack_sampler", "sgm_sample_decode"]

@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels of ``desire_tpu_torch/csrc``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+at first use, into ``desire_tpu_torch/_build/<hash of the sources>/`` (a
+directory git ignores), so a fresh checkout builds everything itself. The
+library is written under a temporary name and renamed into place, so
+processes that build at the same time do not read a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_ROOT = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+LIB_NAME = "libdesire_kernels.so"
+
+# Launches of each kernel: every wrapper adds one where it launches its
+# kernel, and nowhere else.
+LAUNCHES = {"sgm_sample": 0, "ioc_refine": 0}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def _digest():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose=False):
+    """Compile the kernels unless this version is built already. Returns
+    (path of the library, compiler output; empty when nothing was built).
+    verbose adds ``-Xptxas -v`` (registers, shared memory and spills per
+    kernel) and rebuilds even when the library exists."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists() and not verbose:
+        return lib, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def library():
+    """The loaded kernel library (built first if needed)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    lib.sgm_sample_launch.argtypes = ([_I, _I] + [_P] * 27 + [_I] * 9
+                                      + [_P])
+    lib.sgm_sample_launch.restype = _I
+    lib.ioc_refine_launch.argtypes = ([_I, _I] + [_P] * 17 + [_I] * 9
+                                      + [ctypes.c_float, _P])
+    lib.ioc_refine_launch.restype = _I
+    return lib
+
+
+def check(t, name, shape, dtype, device):
+    """Raise unless t is a contiguous tensor of this shape, dtype and
+    device — what the kernels take."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: device {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

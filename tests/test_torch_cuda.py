@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (marked ``cuda``; they skip where no CUDA device is visible).
+
+This file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest`` skips tests/conftest.py, which sets up JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from desire_tpu_torch import DesireConfig
+from desire_tpu_torch.models.ioc import _DELTA_SCALE
+from desire_tpu_torch.ops import _build, ioc_fused, sgm_fused
+from desire_tpu_torch.params import init_desire, to_device
+
+# f32: the kernel and the plain version differ only in the order of float32
+# sums and in fused multiply-adds (the JAX kernel suite's tolerances)
+TOL = dict(rtol=2e-4, atol=2e-5)
+SCORE_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _params(cfg, device):
+    g = torch.Generator().manual_seed(0)
+    p = init_desire(cfg, g, "cpu")
+    for path, scale in ((("sgm", "prior"), 0.1), (("ioc", "delta"), 0.3),
+                        (("ioc", "gate"), 0.3)):
+        w = p[path[0]][path[1]]["w"]
+        p[path[0]][path[1]]["w"] = scale * torch.randn(w.shape, generator=g)
+    return to_device(p, device)
+
+
+def _cfg(**kw):
+    base = dict(obs_len=5, pred_len=6, num_samples=3, d_dim=16,
+                latent_size=8, embedding_size=8, channel_multiplier=10,
+                rnn_size=128, scene_grid=8, scene_channels=8, num_refine=2,
+                max_num_obj=5, compute_dtype="float32")
+    base.update(kw)
+    return DesireConfig(**base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,lat", [
+    (7, "float32", 8), (40, "float32", 8), (40, "bfloat16", 8),
+    (40, "bfloat16", 16)])
+def test_sampler_kernel_matches_plain(cuda_device, n, dtype, lat):
+    """bf16 with lat 16 takes the tensor-core path, lat 8 the CUDA-core
+    one. In bf16 a sum taken in another order can flip an operand's
+    rounding by one bf16 step (2^-8), so single elements may differ by a
+    few 1e-2 while the mean error stays near float32 level."""
+    cfg = _cfg(latent_size=lat, compute_dtype=dtype)
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    p = _params(cfg, cuda_device)["sgm"]
+    rng = np.random.default_rng(n)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                  device=cuda_device)
+    mask = np.ones((n, cfg.obs_len))
+    mask[0, 0] = 0.0
+    args = (t(np.maximum(rng.standard_normal(
+                (n, cfg.obs_len, cfg.embedding_size)), 0)),
+            t(mask),
+            t(np.maximum(rng.standard_normal((n, cfg.d_dim)), 0)),
+            t(rng.standard_normal((n, cfg.num_samples, cfg.latent_size))))
+    args = (args[0].to(cd), args[1], args[2], args[3].to(cd))
+    before = _build.LAUNCHES["sgm_sample"]
+    w = sgm_fused.pack_sampler(p, cd, cuda_device)
+    assert w.use_mma == (dtype == "bfloat16" and lat == 16)
+    got = sgm_fused.sgm_sample_decode_cuda(w, *args, cfg.pred_len)
+    assert _build.LAUNCHES["sgm_sample"] == before + 1
+    ref = sgm_fused.sgm_sample_decode_plain(p, *args, cfg.pred_len,
+                                            compute_dtype=cd)
+    for g, r in zip(got, ref):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        if cd == torch.float32:
+            np.testing.assert_allclose(g, r, **TOL)
+        else:
+            np.testing.assert_allclose(g, r, rtol=0, atol=5e-2)
+            assert np.abs(g - r).mean() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,a,social_freeze", [
+    ("float32", 8, 5, False), ("float32", 8, 5, True),
+    ("bfloat16", 8, 5, False), ("bfloat16", 16, 5, False),
+    ("bfloat16", 16, 5, True), ("bfloat16", 16, 70, False)])
+def test_ioc_kernel_matches_plain(cuda_device, dtype, c, a, social_freeze):
+    """bf16 with C = 16 and A <= 64 takes the tensor-core path; C = 8 or
+    A = 70 the CUDA-core one. bf16 tolerances as in chip_smoke.py: rare
+    rounding flips move single elements, the mean error stays small."""
+    cfg = _cfg(scene_channels=c, compute_dtype=dtype)
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    p = _params(cfg, cuda_device)
+    b, k, t, d = 2, 3, 6, 16
+    rng = np.random.default_rng(1)
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=cuda_device).to(dt)
+    live = (rng.random((b, a)) > 0.3).astype(np.float32)
+    live[:, 0] = 1.0
+    fut = np.ones((b, a, t))
+    fut[:, :, -1] = 0.0
+    args = (f(rng.uniform(0.2, 0.8, (b, a, k, t, 2))),
+            f(np.tanh(rng.standard_normal((b, a, k, t, d))), cd),
+            f(rng.standard_normal((b, 8, 8, c)), cd), f(live), f(fut))
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze)
+    before = _build.LAUNCHES["ioc_refine"]
+    w = ioc_fused.pack_ioc(p["ioc"], p["scf"], cd, cuda_device, a)
+    assert w.use_mma == (dtype == "bfloat16" and c == 16 and a <= 64)
+    got = ioc_fused.ioc_refine_cuda(w, *args, **kw)
+    assert _build.LAUNCHES["ioc_refine"] == before + 1
+    ref = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args, **kw)
+    g_traj, r_traj = got[0].cpu().numpy(), ref[0].cpu().numpy()
+    g_sc, r_sc = got[1].cpu().numpy(), ref[1].cpu().numpy()
+    if cd == torch.float32:
+        np.testing.assert_allclose(g_traj, r_traj, **TOL)
+        np.testing.assert_allclose(g_sc, r_sc, **SCORE_TOL)
+    else:
+        np.testing.assert_allclose(g_traj, r_traj, rtol=0, atol=5e-3)
+        np.testing.assert_allclose(g_sc, r_sc, rtol=0, atol=0.1)
+        assert np.abs(g_traj - r_traj).mean() < 2e-4
+        assert np.abs(g_sc - r_sc).mean() < 5e-3
