@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke test of the PyTorch port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,15 +8,24 @@ Run from the root of a checkout. It imports no JAX. In order, it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of desire_tpu_torch/csrc with nvcc;
-3. holds each kernel against its plain PyTorch version on the card, in
-   float32 at a small shape and in bfloat16 at the flagship shape, and the
-   whole forward on the card against the plain forward on the CPU;
+3. holds each serving kernel against its plain PyTorch version on the card,
+   in float32 at a small shape and in bfloat16 at the flagship shape, and
+   the whole forward on the card against the plain forward on the CPU;
 4. serves three requests of 64 synthetic windows through
    ``serve.Predictor`` at the flagship shape (B=64, A=60, K=20) and checks
-   that both kernels were launched by them;
-5. times the forward and each kernel against the plain versions (CUDA
-   events, after warm-up);
-6. prints one JSON line of per-kernel results, then, last, the device line.
+   that both serving kernels were launched by them;
+5. times the forward and each serving kernel against the plain versions
+   (CUDA events, after warm-up);
+6. training: holds the four training kernels (the IOC training forward and
+   backward, the NLL forward and backward) against their plain versions,
+   in float32 at a small shape and in bfloat16 at the flagship shape
+   (gradients leaf by leaf), checks that the IOC backward is bitwise
+   deterministic, holds one whole float32 training step on the card
+   against the plain step on the CPU, takes five ``run_epoch`` steps at the
+   flagship training shape and checks that every training kernel was
+   launched by them, and times the step and each kernel against the plain
+   versions;
+7. prints one JSON line of per-kernel results, then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -219,6 +229,516 @@ def synthetic_windows(cfg, rng, count):
     return wins
 
 
+# -- bounds: the least time the card could take for a kernel's work ---------
+# NVIDIA H100 SXM data-sheet peaks (dense): device memory 3.35 TB/s; bf16
+# tensor cores 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(nbytes, flops, kind):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_mem = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[kind] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def sampler_work(cfg, n):
+    """(bytes, flops) of the fused sampler on n agent rows: inputs read once
+    (features, mask, rho, eps), outputs written once (dec_h f32, hx); the
+    products of encoder, prior, mask MLP and K-lane decode."""
+    k, t, d, lat = cfg.num_samples, cfg.pred_len, cfg.d_dim, cfg.latent_size
+    to, emb, side2 = cfg.obs_len, cfg.embedding_size, cfg.vae_side ** 2
+    hid = max(4 * lat, side2 // 2)
+    cs = 2 if cfg.compute_dtype == "bfloat16" else 4
+    nbytes = (n * to * emb * cs + n * to * 4 + n * d * 4 + n * k * lat * cs
+              + n * k * t * d * 4 + n * d * 4)
+    mac_row = to * (emb + d) * 3 * d + d * 2 * lat
+    mac_lane = (lat * hid + hid * side2 + side2 * d + 2 * lat * d
+                + d * 3 * d + t * d * 3 * d)
+    return nbytes, 2 * (n * mac_row + n * k * mac_lane)
+
+
+def ioc_fwd_work(cfg, b, iters_out=False):
+    """(bytes, flops) of the IOC forward: traj, dec_h, feature map, masks
+    read once; refined, scores (and every pass's positions) written once;
+    per pass, step and agent row the message, pooling, gate and head
+    products."""
+    a, k, t, d = cfg.max_num_obj, cfg.num_samples, cfg.pred_len, cfg.d_dim
+    g, c, r = cfg.scene_grid, cfg.scene_channels, max(cfg.num_refine, 1)
+    cs = 2 if cfg.compute_dtype == "bfloat16" else 4
+    rows = b * a * k
+    nbytes = (rows * t * 2 * 4 + rows * t * d * cs + b * g * g * c * cs
+              + b * a * 4 + b * a * t * 4 + rows * t * 2 * 4 + rows * 4
+              + (r * rows * t * 2 * 4 if iters_out else 0))
+    mac = d * d + a * d + (2 * d + c) * 3 * d + d * 3 * d + d * 4
+    return nbytes, 2 * (r + 1) * t * rows * mac
+
+
+def ioc_bwd_work(cfg, b):
+    """(bytes, flops) of the IOC backward: its inputs (levels, dec_h, msg,
+    feature map, masks, cotangents) read once and its outputs (d_traj,
+    d_dec, d_msg, d_feat_map) written once; per pass, step and agent row
+    the recomputed forward products (messages come precomputed) and the
+    adjoint products: hidden, dec/scene/social cotangents, weight
+    gradients, the pooling adjoint."""
+    a, k, t, d = cfg.max_num_obj, cfg.num_samples, cfg.pred_len, cfg.d_dim
+    g, c, r = cfg.scene_grid, cfg.scene_channels, max(cfg.num_refine, 1)
+    cs = 2 if cfg.compute_dtype == "bfloat16" else 4
+    rows = b * a * k
+    f = 2 + c + 2 * d
+    nbytes = ((r + 1) * rows * t * 2 * 4 + 2 * rows * t * d * cs
+              + b * g * g * c * cs + b * a * 4 + b * a * t * 4
+              + rows * t * 2 * 4 + rows * 4 + r * rows * t * 2 * 4
+              + rows * t * 2 * 4 + 2 * rows * t * d * 4 + b * g * g * c * 4)
+    fwd = a * d + (2 * d + c) * 3 * d + d * 3 * d + 2 * d * 4
+    adj = 3 * d * d + 3 * d * (2 * d + c) + (f + d) * 3 * d + 2 * a * d
+    return nbytes, 2 * (r + 1) * t * rows * (fwd + adj)
+
+
+def nll_work(n, k, t, backward=False):
+    """(bytes, flops) of the step-summed NLL: raw5, target and mask read
+    once, (N, K) written (forward) or g read and d_raw5 written (backward);
+    ~30 float32 operations per (row, lane, step) forward, ~50 backward."""
+    nbytes = n * k * t * 5 * 4 + n * t * 2 * 4 + n * t * 4 + n * k * 4
+    if backward:
+        nbytes += n * k * t * 5 * 4
+    return nbytes, (50 if backward else 30) * n * k * t
+
+
+# -- training -----------------------------------------------------------------
+# float32: the IOC backward kernel and autograd through the plain version
+# differ in the order of float32 sums and in fused multiply-adds,
+# compounded through the reverse GRU chain of every pass (the JAX kernel
+# suite holds its Pallas backward to jax.grad with these tolerances).
+F32_GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+# float32 NLL: a sum of 12 terms per lane, the same formula term by term.
+NLL_TOL = dict(rtol=1e-5, atol=1e-5)
+# float32 NLL gradient: the analytic gradient against autograd of the same
+# formula, other operation orders; |d raw5| reaches 1e4 where sigma is tiny.
+NLL_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# bfloat16 gradients, leaf by leaf: the kernel rounds only the operands of
+# its products to bf16 and keeps every cotangent in float32, autograd
+# through the plain version rounds each gradient to bf16 at every cast; over
+# 5 passes x 12 reverse GRU steps such rounding differences of 2^-8 add up
+# to a few per cent of a gradient's norm, never to a systematic fault.
+BF16_GRAD_REL_L2 = 0.05
+BF16_GRAD_REL_MEAN = 0.05
+# bf16 training forward: as the serving IOC's (BF16_TOL), per-pass positions
+# included.
+# whole float32 step, card vs CPU: Adam's first update is lr * g / |g|, so a
+# gradient within float32 noise of 0 may flip sign: an element may move by
+# up to 2 lr, but only a few of them may.
+STEP_MAX_ABS = lambda lr: 2.0 * lr + 1e-5
+STEP_FLIP_SHARE = 1e-3
+
+
+def ioc_train_args(cfg, b, rng, device):
+    """IOC inputs with the training leaves made differentiable."""
+    traj, dec_h, fmap, live, fut = ioc_inputs(cfg, b, rng, device)
+    return (traj.requires_grad_(True), dec_h.requires_grad_(True),
+            fmap.requires_grad_(True), live, fut)
+
+
+def tree_paths(tree, prefix=""):
+    """Dotted names of a tree's leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k],
+                                                            f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def ioc_train_outputs(params, cfg, args, kernel):
+    """The training IOC's (refined, scores, iters) and its differentiable
+    leaves (inputs, then the IOC and message parameters), by name: through
+    the kernels, or the plain version on the same device."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.models.ioc import _DELTA_SCALE
+    from desire_tpu_torch.ops import ioc_fused
+    from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
+    traj, dec_h, fmap, live, fut = args
+    trees = {"ioc": params["ioc"],
+             "scf": {"soc_msg": params["scf"]["soc_msg"],
+                     "soc_logtau": params["scf"]["soc_logtau"]}}
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in tree_leaves(trees)]
+    trees = tree_unflatten(trees, leaves)
+    names = ["traj", "dec_h", "feat_map"] + tree_paths(trees)
+    kw = dict(num_refine=max(cfg.num_refine, 1), delta_scale=_DELTA_SCALE)
+    if kernel:
+        refined, scores, iters = ops.ioc_refine_train(
+            trees["ioc"], trees["scf"], traj, dec_h, fmap, live, fut, **kw)
+    else:
+        refined, scores, iters = ioc_fused.ioc_refine_plain(
+            trees["ioc"], trees["scf"], traj, dec_h, fmap, live, fut,
+            collect_iters=True, **kw)
+        scores = scores.to(dec_h.dtype)
+    return (refined, scores, iters), dict(zip(names,
+                                              [traj, dec_h, fmap] + leaves))
+
+
+def ioc_test_loss(outs, wts):
+    """The JAX kernel suite's IOC gradient test loss."""
+    refined, scores, iters = outs
+    return ((refined ** 2).sum() + (scores.float() * wts).sum()
+            + (iters ** 2).sum() + torch.sin(refined).sum())
+
+
+def ioc_train_grads(params, cfg, args, wts, kernel):
+    """Gradients of :func:`ioc_test_loss` for every input and parameter
+    leaf of :func:`ioc_train_outputs`."""
+    outs, leaves = ioc_train_outputs(params, cfg, args, kernel)
+    grads = torch.autograd.grad(ioc_test_loss(outs, wts),
+                                list(leaves.values()))
+    return outs, dict(zip(leaves, grads))
+
+
+def check_grads_bf16(name, got, ref):
+    """Relative L2 and relative mean absolute error of one gradient leaf."""
+    g, r = got.float(), ref.float()
+    diff = g - r
+    rel_l2 = float(diff.norm() / max(float(r.norm()), 1e-30))
+    rel_mean = float(diff.abs().mean() / max(float(r.abs().mean()), 1e-30))
+    ok = (bool(torch.isfinite(g).all()) and rel_l2 <= BF16_GRAD_REL_L2
+          and rel_mean <= BF16_GRAD_REL_MEAN)
+    print(f"  d {name}: rel_l2={rel_l2:.3e} (<= {BF16_GRAD_REL_L2}) "
+          f"rel_mean_abs={rel_mean:.3e} (<= {BF16_GRAD_REL_MEAN}) "
+          f"max_abs_err={float(diff.abs().max()):.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"d {name}: bf16 IOC backward disagrees with "
+                             f"autograd through the plain version")
+    return float(diff.abs().max())
+
+
+def nll_inputs(n, k, t, rng, device):
+    """NLL inputs; every 7th row is far off target with tiny sigmas, so
+    that the log-density floor is active there."""
+    raw5 = rng.standard_normal((n, k, t, 5)) * 0.5
+    target = rng.uniform(0.2, 0.8, (n, t, 2))
+    raw5[:, :, :, :2] += target[:, None]
+    raw5[::7, :, :, :2] = target[::7, None] + 5.0
+    raw5[::7, :, :, 2:4] = -8.0
+    mask = (rng.random((n, t)) > 0.1).astype(np.float32)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return f(raw5), f(target), f(mask)
+
+
+def check_nll(n, k, t, rng, device):
+    """Kernels 4 and 5 against the plain version. Returns the max abs
+    errors (forward, backward) and the inputs."""
+    from desire_tpu_torch.ops import nll
+    raw5, target, mask = nll_inputs(n, k, t, rng, device)
+    got = nll.nll_fwd_cuda(raw5, target, mask)
+    ref = nll.bivariate_nll_plain(raw5, target, mask)
+    floor = float(ref.max())
+    print(f"  (N, K, T) = {(n, k, t)}; largest lane NLL {floor:.1f} "
+          f"(floor active where a step reaches 46.05)", flush=True)
+    e_f = check_close("nll forward", got, ref, **NLL_TOL)
+    g = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32),
+                        device=device)
+    got = nll.nll_bwd_cuda(raw5, target, mask, g)
+    r = raw5.clone().requires_grad_(True)
+    ref, = torch.autograd.grad((nll.bivariate_nll_plain(r, target, mask)
+                                * g).sum(), [r])
+    if float(ref[::7].abs().max()) != 0.0 or float(got[::7].abs().max()):
+        raise AssertionError("NLL gradient not zero where the floor is "
+                             "active")
+    e_b = check_close("nll backward", got, ref, **NLL_GRAD_TOL)
+    return e_f, e_b, (raw5, target, mask, g)
+
+
+def synthetic_batch(cfg, rng):
+    """A training batch of normalized positions (B, To+Tf, A, 2): straight
+    walks with noise, some dead slots (id 0), some late entries."""
+    b, t, a = cfg.batch_size, cfg.total_len, cfg.max_num_obj
+    p0 = rng.uniform(0.15, 0.85, (b, 1, a, 2))
+    v = rng.uniform(-0.01, 0.01, (b, 1, a, 2))
+    xy = p0 + v * np.arange(t)[None, :, None, None] + rng.normal(
+        0, 0.002, (b, t, a, 2))
+    mask = np.ones((b, t, a), np.float32)
+    late = rng.random((b, a)) < 0.2
+    mask[:, :3][np.broadcast_to(late[:, None], (b, 3, a))] = 0.0
+    ids = np.tile(np.arange(1, a + 1), (b, 1)).astype(np.float32)
+    ids[rng.random((b, a)) < 0.1] = 0.0
+    mask = mask * (ids[:, None] > 0)
+    return (np.clip(xy, 0.0, 1.0).astype(np.float32) * mask[..., None],
+            mask, ids)
+
+
+class SyntheticLoader:
+    """``epoch_batches`` over a fixed number of synthetic batches, the
+    interface ``train.trainer.run_epoch`` reads."""
+
+    def __init__(self, cfg, rng, batches):
+        from types import SimpleNamespace
+        self.cfg = cfg
+        self.batches = [SimpleNamespace(**dict(zip(("xy", "mask", "ids"),
+                                                   synthetic_batch(cfg, rng))))
+                        for _ in range(batches)]
+
+    def epoch_batches(self, epoch, start_batch=0):
+        yield from self.batches[start_batch:]
+
+
+def train_noise(cfg, rng, device):
+    """A training step's pinned random draws (desire_loss's noise keys)."""
+    b, a, k = cfg.batch_size, cfg.max_num_obj, cfg.num_samples
+    n = b * a
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return {"eps": f(rng.standard_normal((n, k, cfg.latent_size))),
+            "lane_u": f(rng.random((b, a, k))),
+            "keep_x": f(rng.random((n, cfg.obs_len, cfg.embedding_size))
+                        < cfg.keep_prob),
+            "keep_y": f(rng.random((n, cfg.pred_len, cfg.embedding_size))
+                        < cfg.keep_prob)}
+
+
+@contextlib.contextmanager
+def plain_train_ops():
+    """Route the training kernel call sites to the plain versions (for
+    timing the plain training step on the same card)."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.ops import ioc_fused, nll
+    saved = ops.ioc_refine_train, ops.bivariate_nll_sum
+
+    def ioc_plain(*a, social_freeze=False, **kw):
+        refined, scores, iters = ioc_fused.ioc_refine_plain(
+            *a, collect_iters=True, **kw)
+        return refined, scores.to(a[3].dtype), iters
+    ops.ioc_refine_train = ioc_plain
+    ops.bivariate_nll_sum = nll.bivariate_nll_plain
+    try:
+        yield
+    finally:
+        ops.ioc_refine_train, ops.bivariate_nll_sum = saved
+
+
+def training_phase(dev, smi, rng):
+    """Phase 6. Returns the per-kernel results of the four training
+    kernels."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.models.ioc import _DELTA_SCALE
+    from desire_tpu_torch.ops import ioc_bwd, ioc_fused, nll
+    from desire_tpu_torch.params import to_device
+    from desire_tpu_torch.models.desire import desire_loss
+    from desire_tpu_torch.train.state import (create_train_state,
+                                              tree_leaves, tree_unflatten)
+    from desire_tpu_torch.train.trainer import make_train_step, run_epoch
+
+    # -- 6a. float32, small shape -------------------------------------------
+    print("training kernels, float32, small shape:", flush=True)
+    scfg = small_cfg()
+    sp = make_params(scfg, dev)
+    args = ioc_train_args(scfg, 2, rng, dev)
+    wts = torch.as_tensor(rng.standard_normal(
+        (2, scfg.max_num_obj, scfg.num_samples)).astype(np.float32),
+        device=dev)
+    out_k, g_k = ioc_train_grads(sp, scfg, args, wts, kernel=True)
+    out_p, g_p = ioc_train_grads(sp, scfg, args, wts, kernel=False)
+    for name, a_, b_ in zip(("refined", "scores", "iters"), out_k, out_p):
+        check_close(f"ioc train {name}", a_.detach(), b_.detach(),
+                    **(F32_SCORE_TOL if name == "scores" else F32_TOL))
+    for name in g_p:
+        check_close(f"d {name}", g_k[name], g_p[name], **F32_GRAD_TOL)
+    check_nll(9, scfg.num_samples, scfg.pred_len, rng, dev)
+
+    # -- 6b. bfloat16, flagship shape -----------------------------------------
+    print("training kernels, bfloat16, flagship shape:", flush=True)
+    cfg = flagship_cfg()
+    params = make_params(cfg, dev)
+    b = cfg.batch_size
+    args = ioc_train_args(cfg, b, rng, dev)
+    wts = torch.as_tensor(rng.standard_normal(
+        (b, cfg.max_num_obj, cfg.num_samples)).astype(np.float32),
+        device=dev)
+    out_k, g_k = ioc_train_grads(params, cfg, args, wts, kernel=True)
+    out_p, g_p = ioc_train_grads(params, cfg, args, wts, kernel=False)
+    fwd_err = max(check_bf16("refined", out_k[0].detach(), out_p[0].detach()),
+                  check_bf16("refined", out_k[2].detach(), out_p[2].detach()),
+                  check_bf16("scores", out_k[1].detach(), out_p[1].detach()))
+    bwd_err = max(check_grads_bf16(name, g_k[name], g_p[name])
+                  for name in g_p)
+    del out_p, g_p
+    nll_f_err, nll_b_err, nll_args = check_nll(
+        b * cfg.max_num_obj, cfg.num_samples, cfg.pred_len, rng, dev)
+
+    # -- 6c. determinism ------------------------------------------------------
+    traj, dec_h, fmap, live, fut = (x.detach() for x in args)
+    kw = dict(num_refine=cfg.num_refine, delta_scale=_DELTA_SCALE)
+    w = ioc_fused.pack_ioc(params["ioc"], params["scf"], torch.bfloat16, dev,
+                           cfg.max_num_obj)
+    refined, scores, iters = ioc_fused.ioc_refine_cuda(
+        w, traj, dec_h, fmap, live, fut, collect_iters=True, **kw)
+    msg = ioc_bwd.social_messages(params["scf"], dec_h).contiguous()
+    cts = [torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32),
+                           device=dev) for x in (refined, scores, iters)]
+    bwd_args = (params["ioc"], params["scf"], traj, dec_h, msg, fmap, live,
+                fut, iters, *cts)
+    first = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args, **kw)
+    second = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args, **kw)
+    flat = lambda o: [x for x in o[:4]] + [o[4][n] for n in sorted(o[4])] + [
+        o[5][h][n] for h in sorted(o[5]) for n in ("w", "b")] + [o[6]]
+    same = all(torch.equal(x, y) for x, y in zip(flat(first), flat(second)))
+    print(f"  ioc backward run twice: bitwise equal = {same}", flush=True)
+    if not same:
+        raise AssertionError("the IOC backward kernel is not deterministic")
+
+    # -- 6d. one float32 step: card vs CPU ------------------------------------
+    print("one float32 training step, card (kernels) vs CPU (plain):",
+          flush=True)
+    sp_cpu = to_device(sp, "cpu")
+    batch = synthetic_batch(scfg, rng)
+    noise = train_noise(scfg, rng, "cpu")
+    after = {}
+    for where in ("cpu", "cuda"):
+        step_fn = make_train_step(scfg, steps_per_epoch=190)
+        st = create_train_state(scfg, to_device(sp_cpu, where), seed=0)
+        T = lambda x: torch.as_tensor(x, device=where)
+        st, met = step_fn(st, *map(T, batch),
+                          noise={k: T(v) for k, v in noise.items()})
+        after[where] = (tree_leaves(st.params), met)
+    lr = scfg.learning_rate
+    worst, moved, total_n = 0.0, 0, 0
+    for a_, b_ in zip(*(after[w][0] for w in ("cuda", "cpu"))):
+        diff = (a_.cpu() - b_).abs()
+        worst = max(worst, float(diff.max()))
+        moved += int((diff > 1e-4).sum())
+        total_n += diff.numel()
+    share = moved / total_n
+    for key in ("loss", "grad_norm"):
+        print(f"  {key}: card {float(after['cuda'][1][key]):.6f} "
+              f"CPU {float(after['cpu'][1][key]):.6f}", flush=True)
+    ok = worst <= STEP_MAX_ABS(lr) and share <= STEP_FLIP_SHARE
+    print(f"  params after the step: max_abs_err={worst:.3e} (<= "
+          f"{STEP_MAX_ABS(lr):.3e}), share off by > 1e-4: {share:.2e} "
+          f"(<= {STEP_FLIP_SHARE}) {'ok' if ok else 'FAIL'}", flush=True)
+    check_close("step loss", after["cuda"][1]["loss"].cpu(),
+                after["cpu"][1]["loss"], rtol=1e-4, atol=1e-5)
+    if not ok:
+        raise AssertionError("the float32 step on the card disagrees with "
+                             "the plain step on the CPU")
+
+    # -- 6e. five run_epoch steps at the flagship training shape -------------
+    print("training: five run_epoch steps at B=64, A=60, K=20, bf16",
+          flush=True)
+    loader = SyntheticLoader(cfg, rng, 5)
+    step_fn = make_train_step(cfg, steps_per_epoch=190)
+    state = create_train_state(cfg, params, seed=0)
+    before = [x.clone() for x in tree_leaves(state.params)]
+    logged = []
+    ops.reset_launch_counts()
+    state, mean_loss = run_epoch(state, loader, 0, step_fn,
+                                 log_fn=lambda m, st: logged.append(m),
+                                 log_every=1)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    moved = sum(int((x != y).sum()) for x, y in
+                zip(tree_leaves(state.params), before))
+    print(f"  steps {state.step}; mean loss {mean_loss:.4f}; grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in logged]}; params changed "
+          f"{moved}; launches {launches}", flush=True)
+    if state.step != 5 or len(logged) != 5 or not np.isfinite(mean_loss):
+        raise AssertionError("five finite training steps expected")
+    if not all(np.isfinite(m["grad_norm"]) for m in logged) or moved == 0:
+        raise AssertionError("non-finite gradients or unmoved params")
+    for name in ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
+                 "nll_bwd"):
+        if launches[name] < 5:
+            raise AssertionError(f"kernel {name} launched {launches[name]} "
+                                 f"times in 5 training steps")
+
+    # -- 6f. timing -----------------------------------------------------------
+    print(f"training timing on {smi} (CUDA events, median):", flush=True)
+    xy, mask, ids = (torch.as_tensor(x, device=dev)
+                     for x in synthetic_batch(cfg, rng))
+    st0 = create_train_state(cfg, params, seed=0)
+    step_ms, step_plain_ms = [], []
+    for _ in range(2):       # in turns: kernels, plain, kernels, plain
+        step_ms.append(time_ms(lambda: step_fn(st0, xy, mask, ids),
+                               repeats=3, iters=2))
+        with plain_train_ops():
+            step_plain_ms.append(time_ms(lambda: step_fn(st0, xy, mask, ids),
+                                         repeats=3, iters=2))
+    print(f"train_step_ms kernels {statistics.median(step_ms):.3f} "
+          f"(runs {step_ms})", flush=True)
+    print(f"train_step_ms plain {statistics.median(step_plain_ms):.3f} "
+          f"(runs {step_plain_ms})", flush=True)
+    # where the step's time goes: the loss forward, forward + backward
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    p_req = tree_unflatten(params, leaves)
+    gen = torch.Generator(device=dev)
+
+    def loss_fwd():
+        return desire_loss(p_req, cfg, xy, mask, ids, step=0,
+                           generator=gen)[0]
+    t_loss = time_ms(loss_fwd, repeats=3, iters=2)
+    t_loss_bwd = time_ms(lambda: torch.autograd.grad(loss_fwd(), leaves),
+                         repeats=3, iters=2)
+    print(f"train_step split ms: loss forward {t_loss:.3f}, backward "
+          f"{t_loss_bwd - t_loss:.3f}, optimizer and the rest "
+          f"{statistics.median(step_ms) - t_loss_bwd:.3f}", flush=True)
+    del leaves, p_req
+    t_fwd = time_ms(lambda: ioc_fused.ioc_refine_cuda(
+        w, traj, dec_h, fmap, live, fut, collect_iters=True, **kw))
+    t_fwd_p = time_ms(lambda: ioc_fused.ioc_refine_plain(
+        params["ioc"], params["scf"], traj, dec_h, fmap, live, fut,
+        collect_iters=True, **kw))
+    t_bwd = time_ms(lambda: ioc_bwd.ioc_refine_bwd_cuda(*bwd_args, **kw),
+                    repeats=3, iters=2)
+    # the plain backward: autograd through the plain version, on a graph
+    # recorded once
+    outs, leaves = ioc_train_outputs(params, cfg, args, kernel=False)
+    loss = ioc_test_loss(outs, wts)
+    t_bwd_p = time_ms(lambda: torch.autograd.grad(
+        loss, list(leaves.values()), retain_graph=True), repeats=3, iters=1)
+    del outs, leaves, loss
+    raw5, target, mask_n, g = nll_args
+    t_nf = time_ms(lambda: nll.nll_fwd_cuda(raw5, target, mask_n))
+    t_nf_p = time_ms(lambda: nll.bivariate_nll_plain(raw5, target, mask_n))
+    t_nb = time_ms(lambda: nll.nll_bwd_cuda(raw5, target, mask_n, g))
+    r = raw5.clone().requires_grad_(True)
+    nll_graph = nll.bivariate_nll_plain(r, target, mask_n)
+    t_nb_p = time_ms(lambda: torch.autograd.grad(nll_graph, [r], g,
+                                                 retain_graph=True))
+    for name, t_k, t_p in (("ioc_refine_train", t_fwd, t_fwd_p),
+                           ("ioc_refine_bwd", t_bwd, t_bwd_p),
+                           ("nll_fwd", t_nf, t_nf_p),
+                           ("nll_bwd", t_nb, t_nb_p)):
+        print(f"{name} ms kernel {t_k:.3f} plain {t_p:.3f}", flush=True)
+
+    n_rows = b * cfg.max_num_obj
+    work = {"ioc_refine_train": (ioc_fwd_work(cfg, b, iters_out=True),
+                                 "bf16"),
+            "ioc_refine_bwd": (ioc_bwd_work(cfg, b), "bf16"),
+            "nll_fwd": (nll_work(n_rows, cfg.num_samples, cfg.pred_len),
+                        "f32"),
+            "nll_bwd": (nll_work(n_rows, cfg.num_samples, cfg.pred_len,
+                                 backward=True), "f32")}
+    rows = []
+    for name, src, rep, err, t_k, t_p in (
+            ("ioc_refine_train", "ioc_refine.cu",
+             "desire_tpu/ops/ioc_fused.py:244", fwd_err, t_fwd, t_fwd_p),
+            ("ioc_refine_bwd", "ioc_refine_bwd.cu",
+             "desire_tpu/ops/ioc_bwd.py:93", bwd_err, t_bwd, t_bwd_p),
+            ("nll_fwd", "nll.cu", "desire_tpu/ops/nll.py:83", nll_f_err,
+             t_nf, t_nf_p),
+            ("nll_bwd", "nll.cu", "desire_tpu/ops/nll.py:91", nll_b_err,
+             t_nb, t_nb_p)):
+        (nbytes, flops), kind = work[name]
+        b_ms, b_by = bound(nbytes, flops, kind)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"desire_tpu_torch/csrc/{src}",
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -247,10 +767,10 @@ def main():
           flush=True)
     kernel = "?"
     for line in log.splitlines():      # ptxas -v: registers and spills
-        m = re.search(r"entry function .*?((?:sgm|ioc)_[a-z]+_kernel)I(\w+?)E",
-                      line)
+        m = re.search(r"entry function .*?((?:sgm|ioc|nll)_[a-z_]+?_kernel)"
+                      r"(?:I(\w+?)E)?", line)
         if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         elif "registers" in line or "spill" in line:
             print(f"  {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
     _build.library()
@@ -404,20 +924,28 @@ def main():
         params["ioc"], params["scf"], *i_args, **kw_i))
     print(f"sgm_sample ms kernel {t_sgm:.3f} plain {t_sgm_p:.3f}", flush=True)
     print(f"ioc_refine ms kernel {t_ioc:.3f} plain {t_ioc_p:.3f}", flush=True)
-
-    # -- 6. results -----------------------------------------------------------
+    sgm_bound = bound(*sampler_work(cfg, n), "bf16")
+    ioc_bound = bound(*ioc_fwd_work(cfg, cfg.batch_size), "bf16")
     kernels = [
         {"name": "sgm_sample", "route": "cuda",
          "source": "desire_tpu_torch/csrc/sgm_sample.cu",
          "replaces": "desire_tpu/ops/sgm_fused.py:56",
          "launches": launches["sgm_sample"], "max_abs_err": sgm_err,
-         "ms": t_sgm, "plain_ms": t_sgm_p},
+         "ms": t_sgm, "plain_ms": t_sgm_p, "bound_ms": sgm_bound[0],
+         "bound_by": sgm_bound[1], "library_ms": None},
         {"name": "ioc_refine", "route": "cuda",
          "source": "desire_tpu_torch/csrc/ioc_refine.cu",
          "replaces": "desire_tpu/ops/ioc_fused.py:244",
          "launches": launches["ioc_refine"], "max_abs_err": ioc_err,
-         "ms": t_ioc, "plain_ms": t_ioc_p},
+         "ms": t_ioc, "plain_ms": t_ioc_p, "bound_ms": ioc_bound[0],
+         "bound_by": ioc_bound[1], "library_ms": None},
     ]
+    del packed, s_args, i_args
+
+    # -- 6. training -----------------------------------------------------------
+    kernels += training_phase(dev, smi, rng)
+
+    # -- 7. results -------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,13 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel desire_tpu/ops/ioc_fused.py `_kernel`, reached
-// through `ioc_refine_fused` with msg=None and collect_iters=False: all
-// num_refine passes plus the final re-score. Plain PyTorch version and
-// wrapper: desire_tpu_torch/ops/ioc_fused.py.
+// through `ioc_refine_fused`: all num_refine passes plus the final
+// re-score. With collect_iters=False (inference, msg=None) it returns the
+// refined positions and the scores; with collect_iters=True (the training
+// forward of `make_trainable_fused_ioc`) it also writes every refine pass's
+// positions, which the backward kernel (csrc/ioc_refine_bwd.cu) recomputes
+// each pass from. Plain PyTorch version and wrapper:
+// desire_tpu_torch/ops/ioc_fused.py.
 //
 // What bounds it on this card: the serial dependency chain. Each block
 // walks (num_refine + 1) passes x T steps (5 x 12 at the flagship shape),
@@ -140,8 +144,9 @@ __global__ void __launch_bounds__(kThreads) ioc_refine_kernel(
     const CD* __restrict__ headw_g, const float* __restrict__ headb_g,
     const CD* __restrict__ wmsg_g, const CD* __restrict__ bmsg_g,
     const float* __restrict__ ltau, float* __restrict__ refined,
-    float* __restrict__ scores, int A, int K, int T, int d, int G, int C,
-    int num_refine, int social_freeze, float delta_scale, int fmap_smem) {
+    float* __restrict__ scores, float* __restrict__ iters, int A, int K,
+    int T, int d, int G, int C, int num_refine, int social_freeze,
+    float delta_scale, int fmap_smem) {
   using L_t = IocLayout<CD, kMma>;
   using XT = typename L_t::XT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -486,7 +491,11 @@ __global__ void __launch_bounds__(kThreads) ioc_refine_kernel(
     }
     __syncthreads();
     if (!last) {
-      // deltas after the whole pass, masked by the future mask
+      // deltas after the whole pass, masked by the future mask; with
+      // iters, the pass's positions go out as iters[ip] (B, A, K, T, 2)
+      float* it = iters == nullptr
+                      ? nullptr
+                      : iters + (size_t)ip * gridDim.x * A * T * 2;
       for (int i = tid; i < T * A; i += nth) {
         const float* o = out + i * 4;
         const float gate = sigmoid(o[1]);
@@ -495,6 +504,12 @@ __global__ void __launch_bounds__(kThreads) ioc_refine_kernel(
         const float dy = tanhf(o[3]) * gate;
         xs[i] = xs[i] + dx * m;
         ys[i] = ys[i] + dy * m;
+        if (it != nullptr) {
+          const int t = i / A, a = i % A;
+          const size_t r = ((size_t)b * A + a) * K + k;
+          it[(r * T + t) * 2] = xs[i];
+          it[(r * T + t) * 2 + 1] = ys[i];
+        }
       }
       __syncthreads();
     }
@@ -515,7 +530,8 @@ int launch(const void* traj, const void* dec_h, const void* fmap,
            const void* wx, const void* wh, const void* bi, const void* bh,
            const void* headw, const void* headb, const void* wmsg,
            const void* bmsg, const void* ltau, void* refined, void* scores,
-           int B, int A, int K, int T, int d, int G, int C, int num_refine,
+           void* iters, int B, int A, int K, int T, int d, int G, int C,
+           int num_refine,
            int social_freeze, float delta_scale, cudaStream_t stream) {
   using F = const float*;
   using Cp = const CD*;
@@ -535,7 +551,8 @@ int launch(const void* traj, const void* dec_h, const void* fmap,
   ioc_refine_kernel<CD, kMma><<<B * K, kThreads, bytes, stream>>>(
       F(traj), Cp(dec_h), Cp(fmap), F(live), F(fut_mask), F(wiv), Cp(wx),
       Cp(wh), F(bi), F(bh), Cp(headw), F(headb), Cp(wmsg), Cp(bmsg),
-      F(ltau), (float*)refined, (float*)scores, A, K, T, d, G, C,
+      F(ltau), (float*)refined, (float*)scores, (float*)iters, A, K, T, d,
+      G, C,
       num_refine, social_freeze, delta_scale, fmap_smem ? 1 : 0);
   return (int)cudaGetLastError();
 }
@@ -551,19 +568,22 @@ int launch(const void* traj, const void* dec_h, const void* fmap,
 // headw (d, 4) = [score | gate | delta]; with use_mma (bf16, A <= 64, d and
 // C multiples of 16, d <= 128) they come TRANSPOSED, (out, in), and headw
 // zero-padded to (8, d). Outputs refined (B, A, K, T, 2) and scores
-// (B, A, K) float32. Returns cudaGetLastError().
+// (B, A, K) float32, and, unless iters is null, every refine pass's
+// positions (num_refine, B, A, K, T, 2) float32. Returns
+// cudaGetLastError().
 extern "C" int ioc_refine_launch(
     int is_bf16, int use_mma, const void* traj, const void* dec_h,
     const void* fmap, const void* live, const void* fut_mask,
     const void* wiv, const void* wx, const void* wh, const void* bi,
     const void* bh, const void* headw, const void* headb, const void* wmsg,
-    const void* bmsg, const void* ltau, void* refined, void* scores, int B,
-    int A, int K, int T, int d, int G, int C, int num_refine,
+    const void* bmsg, const void* ltau, void* refined, void* scores,
+    void* iters, int B, int A, int K, int T, int d, int G, int C,
+    int num_refine,
     int social_freeze, float delta_scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
 #define DESIRE_IOC_ARGS                                                       \
   traj, dec_h, fmap, live, fut_mask, wiv, wx, wh, bi, bh, headw, headb, wmsg, \
-      bmsg, ltau, refined, scores, B, A, K, T, d, G, C, num_refine,          \
+      bmsg, ltau, refined, scores, iters, B, A, K, T, d, G, C, num_refine,   \
       social_freeze, delta_scale, s
   if (is_bf16 && use_mma)
     return desire::launch<__nv_bfloat16, true>(DESIRE_IOC_ARGS);

@@ -1,16 +1,21 @@
-"""The full DESIRE model at inference: SGM sampler + scene context + IOC
-rank-and-refine (PyTorch port of ``desire_tpu/models/desire.py``).
+"""The full DESIRE model: SGM sampler + scene context + IOC
+rank-and-refine, and its multi-task training loss (PyTorch port of
+``desire_tpu/models/desire.py``).
 
 Batch convention: xy (B, T, A, 2), mask (B, T, A), ids (B, A); id 0 marks
 an empty agent slot. Agents are flattened into rows (N = B*A) for the
 per-agent work and keep their (B, A) structure where they interact.
+
+All randomness is an input: the latent noise, the variety-subset lane
+draws and the encoder dropout keep-masks may be passed in (``noise``),
+else they are drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from desire_tpu.config import DesireConfig
+from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch import ops
 from desire_tpu_torch.models import ioc as ioc_mod
 from desire_tpu_torch.models import losses
@@ -64,20 +69,39 @@ def split_batch(cfg: DesireConfig, xy, mask):
     return obs_xy, fut_xy, obs_mask, fut_mask
 
 
-@torch.inference_mode()
+def uses_fused_train_ioc(cfg: DesireConfig) -> bool:
+    """Whether the training forward refines through the trainable fused IOC
+    (the training forward kernel and the backward kernel)."""
+    return cfg.fused_train and uses_fused_ioc(cfg)
+
+
 def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                    generator=None, k_samples=None, train=False,
-                   kernel_weights=None):
-    """End-to-end inference forward. Returns a dict of the stage outputs.
+                   kernel_weights=None, keep_x=None, keep_y=None):
+    """End-to-end forward. Returns a dict of the stage outputs.
 
-    eps: optional latent noise (B*A, K, lat); else drawn from generator.
-    kernel_weights: from :func:`pack_kernel_weights` for these params;
-    without them each kernel call packs its own.
-    A model with cfg.scene_image_channels > 0 sees a zero imagery raster."""
-    if train:
-        raise NotImplementedError("the training forward is not ported")
+    eps: optional latent noise (B*A, K, lat); keep_x / keep_y: optional
+    training dropout keep-masks of the observed and future encoders
+    (B*A, To, emb) and (B*A, Tf, emb); whatever is not given is drawn from
+    generator. kernel_weights: from :func:`pack_kernel_weights` for these
+    params (inference); without them each kernel call packs its own.
+    A model with cfg.scene_image_channels > 0 sees a zero imagery raster.
+    Inference runs without autograd; train=True records the graph for
+    :func:`desire_loss`."""
+    with torch.inference_mode(not train):
+        return _forward(params, cfg, xy, mask, ids, eps=eps,
+                        generator=generator, k_samples=k_samples,
+                        train=train, kernel_weights=kernel_weights,
+                        keep_x=keep_x, keep_y=keep_y)
+
+
+def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
+             train, kernel_weights, keep_x, keep_y):
     if cfg.mesh_data * cfg.mesh_k > 1:
         raise NotImplementedError("meshed execution is not ported")
+    if train and cfg.remat:
+        raise NotImplementedError("remat (activation recompute) is not "
+                                  "ported")
     K = k_samples or cfg.num_samples
     xy = xy.float()
     mask = mask.float()
@@ -88,24 +112,31 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
     packed = kernel_weights or {}
     out = sgm_mod.sgm_forward(
         params["sgm"], cfg, obs_xy.reshape(n, *obs_xy.shape[2:]),
-        obs_mask.reshape(n, -1), eps=eps, generator=generator, k_samples=K,
-        sampler_weights=packed.get("sgm"))
+        obs_mask.reshape(n, -1),
+        fut_xy.reshape(n, *fut_xy.shape[2:]) if train else None,
+        fut_mask.reshape(n, -1) if train else None,
+        eps=eps, generator=generator, k_samples=K, train=train,
+        keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"))
 
     tf_len = fut_xy.shape[2]
     traj = out["traj_mu"].reshape(b, a, K, tf_len, 2)
     dec_h = out["dec_h"].reshape(b, a, K, tf_len, -1)
+
+    def per_agent(x):
+        return None if x is None else x.reshape(b, a, -1)
+
     result = {
         "raw5": out["raw5"].reshape(b, a, K, tf_len, 5),
         "sgm_traj": traj,
-        "zp_mu": (None if out["zp_mu"] is None
-                  else out["zp_mu"].reshape(b, a, -1)),
-        "zp_logvar": (None if out["zp_logvar"] is None
-                      else out["zp_logvar"].reshape(b, a, -1)),
+        "z_mu": per_agent(out["z_mu"]),
+        "z_logvar": per_agent(out["z_logvar"]),
+        "zp_mu": per_agent(out["zp_mu"]),
+        "zp_logvar": per_agent(out["zp_logvar"]),
         "live": live, "obs_xy": obs_xy, "fut_xy": fut_xy,
         "obs_mask": obs_mask, "fut_mask": fut_mask,
     }
     if not cfg.use_ioc:
-        result.update(refined_traj=traj, scores=None)
+        result.update(refined_traj=traj, scores=None, per_iter_trajs=[])
         return result
 
     cd = sgm_mod.compute_dtype(cfg)
@@ -124,16 +155,136 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
             (b, cfg.scene_grid, cfg.scene_grid, cfg.scene_channels),
             dtype=cd, device=xy.device)
 
-    if uses_fused_ioc(cfg):
+    kw = dict(num_refine=max(cfg.num_refine, 1),
+              delta_scale=ioc_mod._DELTA_SCALE,
+              social_freeze=cfg.social_freeze)
+    if not train and uses_fused_ioc(cfg):
         refined, scores = ops.ioc_refine(
             params["ioc"], params["scf"], traj.contiguous(),
             dec_h.contiguous(), feat_map.contiguous(), live.contiguous(),
-            fut_mask.contiguous(), num_refine=max(cfg.num_refine, 1),
-            delta_scale=ioc_mod._DELTA_SCALE,
-            social_freeze=cfg.social_freeze, weights=packed.get("ioc"))
+            fut_mask.contiguous(), weights=packed.get("ioc"), **kw)
+        per_iter = []
+    elif train and uses_fused_train_ioc(cfg):
+        refined, scores, iters = ops.ioc_refine_train(
+            params["ioc"], params["scf"], traj, dec_h, feat_map, live,
+            fut_mask, **kw)
+        per_iter = list(iters.unbind(0))
     else:
-        refined, scores, _ = ioc_mod.ioc_forward(
+        refined, scores, per_iter = ioc_mod.ioc_forward(
             params["ioc"], params["scf"], cfg, traj, dec_h, feat_map, live,
             fut_mask)
-    result.update(refined_traj=refined, scores=scores)
+    result.update(refined_traj=refined, scores=scores,
+                  per_iter_trajs=per_iter)
     return result
+
+
+def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
+                k_samples=None, noise=None, generator=None):
+    """Multi-task training loss and metrics (JAX ``desire_loss``).
+
+    noise: optional dict of the step's random draws: "eps" (B*A, K, lat),
+    "lane_u" (B, A, K) uniforms of the variety subset, "keep_x" and
+    "keep_y" dropout keep-masks; each missing one is drawn from generator.
+    Returns (total, metrics), metrics with the JAX package's keys."""
+    K = k_samples or cfg.num_samples
+    b, _, a, _ = xy.shape
+    dev = xy.device
+    nz = noise or {}
+    lane_u = nz.get("lane_u")
+    if lane_u is None:
+        lane_u = torch.rand((b, a, K), generator=generator, device=dev)
+    elif tuple(lane_u.shape) != (b, a, K):
+        raise ValueError(f"lane_u must be {(b, a, K)}, got "
+                         f"{tuple(lane_u.shape)}")
+    out = desire_forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
+                         generator=generator, k_samples=K, train=True,
+                         keep_x=nz.get("keep_x"), keep_y=nz.get("keep_y"))
+    fut_xy, fut_mask, live = out["fut_xy"], out["fut_mask"], out["live"]
+    f32 = torch.float32
+    # an agent must have at least one valid future step
+    live = live * (fut_mask.sum(dim=-1) > 0).to(live.dtype)
+
+    if cfg.speed_loss_alpha > 0:
+        # speed-balanced weights, renormalized to mean 1 over live agents
+        s = sgm_mod.observed_speed(
+            out["obs_xy"].reshape(-1, out["obs_xy"].shape[2], 2),
+            out["obs_mask"].reshape(-1, out["obs_mask"].shape[2]))
+        s = s.reshape(live.shape).detach()
+        mean_s = losses.masked_mean(s, live)
+        w = ((s + 1e-4) / (mean_s + 1e-4)) ** cfg.speed_loss_alpha
+        w = w / torch.clamp(losses.masked_mean(w, live), min=1e-6)
+        live = live * w
+
+    raw5 = out["raw5"].to(f32)
+    tf_len = raw5.shape[3]
+    if cfg.use_pallas:
+        nll_per_lane = ops.bivariate_nll_sum(
+            raw5.reshape(b * a, K, tf_len, 5),
+            fut_xy.reshape(b * a, tf_len, 2).to(f32),
+            fut_mask.reshape(b * a, tf_len).to(f32)).reshape(b, a, K)
+    else:
+        nll_per_lane = losses.bivariate_nll(
+            raw5, fut_xy[:, :, None].to(f32),
+            step_mask=fut_mask[:, :, None].to(f32)).sum(dim=-1)
+    # variety subset: min-aggregated losses see variety_k random lanes
+    lane_pen = None
+    if cfg.recon_agg == "min" and 0 < cfg.variety_k < K:
+        kth = torch.sort(lane_u, dim=-1).values[..., cfg.variety_k - 1, None]
+        lane_pen = torch.where(lane_u <= kth, 0.0, 1e9).to(f32)
+    if cfg.recon_agg == "min":
+        nll_agg = torch.amin(nll_per_lane if lane_pen is None
+                             else nll_per_lane + lane_pen, dim=-1)
+    else:
+        nll_agg = nll_per_lane.mean(dim=-1)
+    nll = losses.masked_mean(nll_agg, live)
+
+    if out["zp_mu"] is not None:
+        kld_per = losses.kld_gaussians(
+            out["z_mu"].to(f32), out["z_logvar"].to(f32),
+            out["zp_mu"].to(f32), out["zp_logvar"].to(f32),
+            free_bits=cfg.kld_free_bits)
+    else:
+        kld_per = losses.kld_normal(out["z_mu"].to(f32),
+                                    out["z_logvar"].to(f32),
+                                    free_bits=cfg.kld_free_bits)
+    kld = losses.masked_mean(kld_per, live)
+    w_kld = cfg.w_kld
+    if cfg.kld_warmup and step is not None:
+        ramp = torch.as_tensor(step, dtype=f32) / cfg.kld_warmup
+        w_kld = w_kld * torch.clamp(ramp, 0.0, 1.0).to(dev)
+
+    total = cfg.w_nll * nll + w_kld * kld
+    metrics = {"nll": nll, "kld": kld}
+
+    kp = int(round(K * cfg.prior_lane_frac))
+    if kp > 0 and cfg.w_prior_nll > 0:
+        # best of the prior lanes: prior-predictive coverage
+        nll_prior = losses.masked_mean(
+            torch.amin(nll_per_lane[..., :kp], dim=-1), live)
+        total = total + cfg.w_prior_nll * nll_prior
+        metrics["prior_nll"] = nll_prior
+
+    if cfg.use_ioc:
+        scores = out["scores"].to(f32)
+        live_t = live.to(f32)
+        ce = losses.ioc_cross_entropy(
+            scores, out["refined_traj"].to(f32), fut_xy.to(f32), live_t,
+            step_mask=fut_mask.to(f32), temperature=cfg.ioc_temp)
+        reg = 0.0
+        for t in out["per_iter_trajs"]:
+            reg = reg + losses.refine_regression_loss(
+                t.to(f32), fut_xy.to(f32), live_t,
+                step_mask=fut_mask.to(f32), agg=cfg.recon_agg,
+                lane_penalty=lane_pen)
+        reg = reg / max(len(out["per_iter_trajs"]), 1)
+        # trust region: every lane's refinement stays near its hypothesis
+        delta2 = ((out["refined_traj"].to(f32)
+                   - out["sgm_traj"].to(f32)) ** 2).sum(dim=-1)
+        delta2 = delta2 * fut_mask[:, :, None].to(f32)
+        delta_mag = losses.masked_mean(delta2.mean(dim=(-1, -2)), live_t)
+        total = (total + cfg.w_ce * ce + cfg.w_reg * reg
+                 + cfg.w_delta * delta_mag)
+        metrics.update(ioc_ce=ce, refine_reg=reg, delta_mag=delta_mag)
+
+    metrics["loss"] = total
+    return total, metrics

@@ -1,5 +1,4 @@
-"""IOC ranking and refinement, inference (PyTorch port of
-``desire_tpu/models/ioc.py``).
+"""IOC ranking and refinement (PyTorch port of ``desire_tpu/models/ioc.py``).
 
 A score GRU runs over each hypothesis' fused context (velocity, scene,
 social, decoder hidden) and emits a per-step reward psi; the hypothesis
@@ -8,14 +7,17 @@ delta head refines the hypothesis, ``num_refine`` times, and a final pass
 re-scores the refined trajectory.
 
 This is the plain path; with ``cfg.use_pallas`` and social pooling on, the
-model runs the fused kernel of ``ops/ioc_fused.py`` instead.
+model runs the fused kernels of ``ops/ioc_fused.py`` (and, in training,
+``ops/ioc_bwd.py``) instead. It differentiates like the JAX version: the
+final re-score reads the refined positions detached, so the ranking loss
+never moves a hypothesis.
 """
 
 from __future__ import annotations
 
 import torch
 
-from desire_tpu.config import DesireConfig
+from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import layers as L
 from desire_tpu_torch.models import scf
 
@@ -61,7 +63,7 @@ def score_and_delta(p, feats, dec_h, fut_mask, scene_channels):
 
 def ioc_forward(p_ioc, p_scf, cfg: DesireConfig, traj, dec_h, feat_map,
                 live, fut_mask, num_refine=None):
-    """Iterative rank-and-refine (inference).
+    """Iterative rank-and-refine.
 
     traj (B, A, K, Tf, 2) f32, dec_h (B, A, K, Tf, d), feat_map (B, G, G, C),
     live (B, A), fut_mask (B, A, Tf). Returns (refined_traj, scores,
@@ -81,8 +83,14 @@ def ioc_forward(p_ioc, p_scf, cfg: DesireConfig, traj, dec_h, feat_map,
                                        cfg.scene_channels)
         traj = traj + deltas.float()
         per_iter.append(traj)
-    feats = scf.fuse_context(p_scf, cfg, traj, msg, feat_map, live,
-                             social=social0)
+    # the re-score judges the hypotheses and must not move them: its
+    # positions are detached (under social_freeze its social block is
+    # re-pooled at the detached initial positions, same value as social0)
+    social_sc = None
+    if social0 is not None:
+        social_sc = scf.social_pool(p_scf, traj0.detach(), msg, live)
+    feats = scf.fuse_context(p_scf, cfg, traj.detach(), msg, feat_map, live,
+                             social=social_sc)
     scores, _, _ = score_and_delta(p_ioc, feats, dec_h, fut_mask,
                                    cfg.scene_channels)
     return traj, scores, per_iter

@@ -120,15 +120,27 @@ def init_conv(generator, kh, kw, cin, cout, device, dtype=torch.float32):
             "b": torch.zeros((cout,), device=device, dtype=dtype)}
 
 
-def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 "SAME" convolution with an odd square kernel, the only form
-    the scene CNN uses. x: (N, H, W, C) with HWIO weights."""
+def _same_pads(size, k, stride):
+    """XLA's "SAME" padding of one spatial axis: (low, high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(p: Params, x: torch.Tensor, stride=1, padding="SAME"):
+    """Convolution with XLA's padding conventions ("SAME": the output is
+    ceil(in / stride), the extra pad row or column goes high; "VALID": no
+    padding). x: (N, H, W, C) with HWIO weights."""
     w = p["w"]
     kh, kw = int(w.shape[0]), int(w.shape[1])
-    if kh != kw or kh % 2 == 0:
-        raise ValueError(f"conv2d takes odd square kernels, got {kh}x{kw}")
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
-                 padding=kh // 2)
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        ph = _same_pads(int(x.shape[1]), kh, stride)
+        pw = _same_pads(int(x.shape[2]), kw, stride)
+        xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID': {padding!r}")
+    y = F.conv2d(xc, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from desire_tpu.config import DesireConfig
+from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import layers as L
 
 

@@ -1,10 +1,17 @@
-"""Sample Generation Module (SGM), inference branch: the CVAE trajectory
-sampler (PyTorch port of ``desire_tpu/models/sgm.py``).
+"""Sample Generation Module (SGM): the CVAE trajectory sampler (PyTorch
+port of ``desire_tpu/models/sgm.py``).
 
 Agents are flattened into rows (N = B*A) and the K hypothesis lanes are a
 second batch dimension. Positions stay float32 throughout; only network
-activations run in the compute dtype. The training branch (future encoder,
-recognition network, posterior lanes) comes with the training slice.
+activations run in the compute dtype.
+
+At inference every lane draws z from the (conditional) prior. In training
+the future is encoded too, the recognition network gives the posterior
+q(z | X, Y), the first round(K * prior_lane_frac) lanes draw from the
+prior (their noise scaled by the learned temperature) and the rest from the
+posterior, and the embedded encoder inputs get inverted dropout. All
+randomness is an input: the latent noise ``eps`` and the dropout keep-masks
+may be passed in, else they are drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from desire_tpu.config import DesireConfig
+from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch import ops
 from desire_tpu_torch.models import layers as L
 
@@ -116,16 +123,40 @@ def _traj_feats(xy_rel, mask, extra=None):
     return torch.cat(fs, -1) * mask[..., None]
 
 
-def encode_trajectory(stack, embed_p, xy_rel, mask, extra=None):
+def encode_trajectory(stack, embed_p, xy_rel, mask, extra=None, keep=None,
+                      keep_prob=1.0):
     """GRU-encode (N, T, 2) trajectories; masked steps carry the state.
+    keep: optional 0/1 mask of the embedded features (N, T, emb) for
+    inverted dropout (kept features are scaled by 1 / keep_prob).
     Returns (top-layer final hidden (N, H), all finals (L, N, H))."""
     feats = torch.relu(L.dense(embed_p, _traj_feats(xy_rel, mask,
                                                     extra=extra)))
+    if keep is not None and keep_prob < 1.0:
+        feats = feats * keep.to(feats.dtype) / keep_prob
     xs = feats.transpose(0, 1)
     m = mask.transpose(0, 1)
     h0 = xs.new_zeros((len(stack), xs.shape[1], stack[0]["wh"].shape[0]))
     finals, _ = L.gru_stack_scan(stack, h0, xs, mask=m)
     return finals[-1], finals
+
+
+def vae_encode(p, hx, hy, side):
+    """Recognition network q(z | X, Y): the fused encodings through the
+    conv stack (vae side 32, the reference geometry) or an MLP (any other
+    side) -> (mu, logvar), each (N, latent)."""
+    fused = torch.relu(L.dense(p["fuse"], torch.cat([hx, hy], -1)))
+    if "venc1" in p:
+        img = fused.reshape(-1, side, side, 1)
+        h = F.elu(L.groupnorm(p["vgn1"], L.conv2d(p["venc1"], img,
+                                                  stride=2)))
+        h = F.elu(L.groupnorm(p["vgn2"], L.conv2d(p["venc2"], h, stride=2)))
+        h = F.elu(L.groupnorm(p["vgn3"], L.conv2d(p["venc3"], h,
+                                                  padding="VALID")))
+        h = h.reshape(h.shape[0], -1)
+    else:
+        h = F.elu(L.dense(p["venc_fc1"], fused))
+    mu, logvar = L.dense(p["venc_fc"], h).chunk(2, dim=-1)
+    return mu, logvar
 
 
 def vae_decode_mask(p, z, side):
@@ -250,34 +281,55 @@ def uses_fused_sampler(p, cfg: DesireConfig) -> bool:
     return cfg.use_pallas and cfg.num_layers == 1 and "vdec_fc1" in p
 
 
-def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, *, eps=None,
-                generator=None, k_samples=None, train=False,
-                sampler_weights=None):
-    """Inference SGM pass over flattened agent rows.
+def _keep_mask(keep, shape, keep_prob, generator, device):
+    """Inverted-dropout keep mask of ``shape``: the given one, else drawn
+    from ``generator``; None when nothing is dropped."""
+    if keep_prob >= 1.0:
+        return None
+    if keep is None:
+        keep = torch.rand(shape, generator=generator, device=device) < keep_prob
+    if tuple(keep.shape) != tuple(shape):
+        raise ValueError(f"keep mask must be {tuple(shape)}, got "
+                         f"{tuple(keep.shape)}")
+    return keep
 
-    obs_xy (N, To, 2) absolute normalized, obs_mask (N, To). The latent
-    noise is ``eps`` (N, K, lat) when given, else drawn from ``generator``.
-    It is scaled by the learned temperature, when the model has one, before
-    z = mu_p + sigma_p * eps. sampler_weights: the fused sampler's kernel
-    weights (``ops.pack_sampler``), packed per call when not given. Returns
-    a dict of absolute-position Gaussians for K hypotheses."""
-    if train:
-        raise NotImplementedError("the SGM training branch is not ported")
+
+def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
+                fut_mask=None, *, eps=None, generator=None, k_samples=None,
+                train=False, keep_x=None, keep_y=None, sampler_weights=None):
+    """SGM pass over flattened agent rows.
+
+    obs_xy (N, To, 2) absolute normalized, obs_mask (N, To); in training
+    also fut_xy (N, Tf, 2) and fut_mask (N, Tf). The latent noise is
+    ``eps`` (N, K, lat) when given, else drawn from ``generator``, and so
+    are the training dropout keep-masks ``keep_x`` (N, To, emb) and
+    ``keep_y`` (N, Tf, emb) of the observed and future encoders.
+
+    Inference: every lane draws z = mu_p + sigma_p * eps from the
+    (conditional) prior, eps scaled by the learned temperature when the
+    model has one. Training: z = mu + sigma * eps from the posterior, except
+    the first round(K * prior_lane_frac) lanes, which draw from the prior
+    with the temperature-scaled noise. sampler_weights: the fused sampler's
+    kernel weights (``ops.pack_sampler``), packed per call when not given.
+    Returns a dict of absolute-position Gaussians for K hypotheses."""
     K = k_samples or cfg.num_samples
     n = obs_xy.shape[0]
     lat = cfg.latent_size
-    pred_len = cfg.pred_len
+    pred_len = fut_xy.shape[1] if fut_xy is not None else cfg.pred_len
     cd = compute_dtype(cfg)
+    if train and (fut_xy is None or fut_mask is None):
+        raise ValueError("the training branch needs fut_xy and fut_mask")
 
     obs_xy = obs_xy.float()
     obs_mask = obs_mask.float()
     origin = obs_xy[:, -1]
     rel_obs = (obs_xy - origin[:, None]) * obs_mask[..., None]
 
-    enc_rel, enc_extra = rel_obs, None
+    enc_rel, enc_extra, inv_scale = rel_obs, None, None
     if cfg.input_norm:
         s_obs = observed_speed(rel_obs, obs_mask)
-        enc_rel = rel_obs * (1.0 / (s_obs + cfg.vel_floor))[:, None]
+        inv_scale = 1.0 / (s_obs + cfg.vel_floor)
+        enc_rel = rel_obs * inv_scale[:, None]
         enc_extra = torch.log1p(s_obs / cfg.vel_floor).to(cd)
 
     rho = temporal_features(p, enc_rel.to(cd), obs_mask.to(cd))
@@ -291,10 +343,11 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, *, eps=None,
     eps = eps.to(cd)
     if eps.shape != (n, K, lat):
         raise ValueError(f"eps must be {(n, K, lat)}, got {tuple(eps.shape)}")
-    if z_temp is not None:
-        eps = eps * z_temp.to(cd)
 
-    if uses_fused_sampler(p, cfg):
+    mu = logvar = None
+    if not train and uses_fused_sampler(p, cfg):
+        if z_temp is not None:
+            eps = eps * z_temp.to(cd)
         feats = torch.relu(L.dense(
             p["embed_x"], _traj_feats(enc_rel.to(cd), obs_mask.to(cd),
                                       extra=enc_extra)))
@@ -310,16 +363,48 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, *, eps=None,
         raw = L.dense(p["head"], dec_h)
         lane_h = dec_h_f32
     else:
-        hx, hx_all = encode_trajectory(p["enc_x"], p["embed_x"],
-                                       enc_rel.to(cd), obs_mask.to(cd),
-                                       extra=enc_extra)
+        kp = cfg.keep_prob if train else 1.0
+        emb = cfg.embedding_size
+        dev = obs_xy.device
+        hx, hx_all = encode_trajectory(
+            p["enc_x"], p["embed_x"], enc_rel.to(cd), obs_mask.to(cd),
+            extra=enc_extra, keep_prob=kp,
+            keep=_keep_mask(keep_x, (n, obs_xy.shape[1], emb), kp,
+                            generator, dev))
         mu_p = logvar_p = None
         if "prior" in p:
             mu_p, lv_raw = L.dense(p["prior"], hx).chunk(2, dim=-1)
             logvar_p = 4.0 * torch.tanh(lv_raw / 4.0)
-            z = mu_p[:, None] + torch.exp(0.5 * logvar_p)[:, None] * eps
+        if train:
+            fut_xy = fut_xy.float()
+            fut_mask = fut_mask.float()
+            rel_fut = (fut_xy - origin[:, None]) * fut_mask[..., None]
+            if inv_scale is not None:
+                rel_fut = rel_fut * inv_scale[:, None]
+            hy, _ = encode_trajectory(
+                p["enc_y"], p["embed_y"], rel_fut.to(cd), fut_mask.to(cd),
+                extra=enc_extra, keep_prob=kp,
+                keep=_keep_mask(keep_y, (n, pred_len, emb), kp, generator,
+                                dev))
+            mu, logvar = vae_encode(p, hx, hy, cfg.vae_side)
+            eps = eps.to(hx.dtype)
+            z = mu[:, None] + torch.exp(0.5 * logvar)[:, None] * eps
+            k_prior = int(round(K * cfg.prior_lane_frac))
+            if k_prior > 0:
+                # the first lanes sample the prior, with the learned
+                # temperature on their noise
+                eps_pr = eps if z_temp is None else eps * z_temp.to(eps.dtype)
+                z_pr = eps_pr
+                if mu_p is not None:
+                    z_pr = (mu_p[:, None]
+                            + torch.exp(0.5 * logvar_p)[:, None] * eps_pr)
+                z = torch.cat([z_pr[:, :k_prior], z[:, k_prior:]], dim=1)
         else:
+            if z_temp is not None:
+                eps = eps * z_temp.to(cd)
             z = eps
+            if mu_p is not None:
+                z = mu_p[:, None] + torch.exp(0.5 * logvar_p)[:, None] * eps
         z_flat = z.reshape(n * K, lat)
         beta, _ = vae_decode_mask(p, z_flat, cfg.vae_side)
         h_seed = (beta * hx.repeat_interleave(K, dim=0)
@@ -340,6 +425,7 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, *, eps=None,
                              heading=heading)
     return {
         "raw5": raw5, "traj_mu": raw5[..., 0:2], "dec_h": dec_h,
+        "z_mu": mu, "z_logvar": logvar,
         "zp_mu": mu_p, "zp_logvar": logvar_p,
         "rho": rho, "hx": hx, "origin": origin,
     }

@@ -30,7 +30,8 @@ LIB_NAME = "libdesire_kernels.so"
 
 # Launches of each kernel: every wrapper adds one where it launches its
 # kernel, and nowhere else.
-LAUNCHES = {"sgm_sample": 0, "ioc_refine": 0}
+LAUNCHES = {"sgm_sample": 0, "ioc_refine": 0, "ioc_refine_train": 0,
+            "ioc_refine_bwd": 0, "nll_fwd": 0, "nll_bwd": 0}
 
 
 def reset_launch_counts():
@@ -97,9 +98,18 @@ def library():
     lib.sgm_sample_launch.argtypes = ([_I, _I] + [_P] * 27 + [_I] * 9
                                       + [_P])
     lib.sgm_sample_launch.restype = _I
-    lib.ioc_refine_launch.argtypes = ([_I, _I] + [_P] * 17 + [_I] * 9
+    lib.ioc_refine_launch.argtypes = ([_I, _I] + [_P] * 18 + [_I] * 9
                                       + [ctypes.c_float, _P])
     lib.ioc_refine_launch.restype = _I
+    lib.ioc_refine_bwd_launch.argtypes = ([_I, _P, _P, _P] + [_I] * 8
+                                          + [ctypes.c_float, _P])
+    lib.ioc_refine_bwd_launch.restype = _I
+    lib.ioc_refine_bwd_ws_words.argtypes = [_I] * 7
+    lib.ioc_refine_bwd_ws_words.restype = ctypes.c_longlong
+    lib.nll_fwd_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    lib.nll_fwd_launch.restype = _I
+    lib.nll_bwd_launch.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.nll_bwd_launch.restype = _I
     return lib
 
 

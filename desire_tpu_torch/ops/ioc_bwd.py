@@ -1,0 +1,219 @@
+"""The trainable fused IOC rank-and-refine: the training forward (the IOC
+kernel with ``collect_iters``) bound to the backward kernel
+``csrc/ioc_refine_bwd.cu`` in a ``torch.autograd.Function`` (port of
+``desire_tpu/ops/ioc_bwd.py`` and of ``make_trainable_fused_ioc`` in
+``desire_tpu/ops/ioc_fused.py``).
+
+The forward kernel saves only every pass's positions; the backward kernel
+recomputes each pass from them and returns the cotangents of the
+trajectories, dec_h, the social messages, the feature map and soc_logtau,
+and the gradients of the score GRU and the three heads. The messages are
+msg = dec_h Wmsg + bmsg; the chain back through that product into dec_h
+and the message weights is left to ``torch.matmul``, as the JAX wrapper
+leaves it to XLA. live and fut_mask are data and get no gradient.
+
+On CPU tensors the plain version runs instead: autograd through
+``ioc_fused.ioc_refine_plain(collect_iters=True)``, which carries the same
+stop-gradients as ``models/ioc.ioc_forward``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from desire_tpu_torch.ops import _build
+from desire_tpu_torch.ops.ioc_fused import (ioc_refine_cuda,
+                                            ioc_refine_plain, pack_ioc)
+
+_F32 = torch.float32
+
+# leaf order of the autograd Function's parameter arguments
+_IOC_LEAVES = (("gru", "wi"), ("gru", "wh"), ("gru", "bi"), ("gru", "bh"),
+               ("score", "w"), ("score", "b"), ("gate", "w"), ("gate", "b"),
+               ("delta", "w"), ("delta", "b"))
+
+
+def _ioc_leaf(p_ioc, path):
+    node = p_ioc[path[0]]
+    return (node[0] if path[0] == "gru" else node)[path[1]]
+
+
+def _trees(leaves, msg_w, msg_b, ltau):
+    """The leaves back into the (p_ioc, p_scf) trees the kernels read."""
+    p_ioc = {"gru": [{}], "score": {}, "gate": {}, "delta": {}}
+    for path, v in zip(_IOC_LEAVES, leaves):
+        (p_ioc["gru"][0] if path[0] == "gru" else p_ioc[path[0]])[path[1]] = v
+    return p_ioc, {"soc_msg": {"w": msg_w, "b": msg_b}, "soc_logtau": ltau}
+
+
+def social_messages(p_scf, dec_h):
+    """msg = dec_h Wmsg + bmsg in dec_h's dtype (scf.social_messages)."""
+    return dec_h @ p_scf["soc_msg"]["w"].to(dec_h.dtype) + \
+        p_scf["soc_msg"]["b"].to(dec_h.dtype)
+
+
+def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
+                        fut_mask, iters, d_refined, d_scores, d_iters, *,
+                        num_refine, delta_scale):
+    """Launch the backward kernel (``csrc/ioc_refine_bwd.cu``) on CUDA
+    tensors. Shapes as :func:`ioc_fused.ioc_refine_cuda`; iters is its
+    collect_iters output (R, B, A, K, T, 2) and the cotangents are float32.
+
+    Returns (d_traj f32, d_dec, d_msg (both float32), d_feat_map (B, G, G,
+    C) float32, the GRU gradients {wi, wh, bi, bh}, the head gradients
+    {score, gate, delta} (each {w, b}), d soc_logtau ()). The weight and
+    feature-map gradients are per-block partials summed here in a fixed
+    order: the result is bitwise reproducible."""
+    if not traj.is_cuda:
+        raise ValueError("ioc_refine_bwd_cuda needs CUDA tensors")
+    cd, dev = dec_h.dtype, traj.device
+    b, a, k, t, _ = traj.shape
+    r = int(num_refine)
+    d = int(dec_h.shape[-1])
+    g, c = int(feat_map.shape[1]), int(feat_map.shape[-1])
+    f = 2 + c + 2 * d
+    gp = p_ioc["gru"][0]
+    for name, x, shape, dt in (
+            ("traj", traj, (b, a, k, t, 2), _F32),
+            ("iters", iters, (r, b, a, k, t, 2), _F32),
+            ("dec_h", dec_h, (b, a, k, t, d), cd),
+            ("msg", msg, (b, a, k, t, d), cd),
+            ("feat_map", feat_map, (b, g, g, c), cd),
+            ("live", live, (b, a), _F32),
+            ("fut_mask", fut_mask, (b, a, t), _F32),
+            ("d_refined", d_refined, (b, a, k, t, 2), _F32),
+            ("d_scores", d_scores, (b, a, k), _F32),
+            ("d_iters", d_iters, (r, b, a, k, t, 2), _F32)):
+        _build.check(x, name, shape, dt, dev)
+    if tuple(gp["wi"].shape) != (f, 3 * d):
+        raise ValueError(f"gru wi {tuple(gp['wi'].shape)}, expected "
+                         f"{(f, 3 * d)}")
+
+    def wc(x):
+        return x.detach().to(device=dev, dtype=cd).contiguous()
+
+    def wf(x):
+        return x.detach().to(device=dev, dtype=_F32).contiguous()
+
+    heads_w = torch.cat([p_ioc["score"]["w"], p_ioc["gate"]["w"],
+                         p_ioc["delta"]["w"]], dim=-1)
+    heads_b = torch.cat([p_ioc["score"]["b"], p_ioc["gate"]["b"],
+                         p_ioc["delta"]["b"]])
+    wi, wh = gp["wi"], gp["wh"]
+    ins = [traj, iters, dec_h, msg, feat_map, live, fut_mask,
+           wc(wi), wc(wi.t()), wc(wh), wc(wh.t()), wc(heads_w),
+           wf(wi[:2]), wf(gp["bi"]), wf(gp["bh"]), wf(heads_w), wf(heads_b),
+           wf(p_scf["soc_logtau"].reshape(1)), d_refined, d_scores, d_iters]
+    nb = b * k
+    z = lambda *shape: torch.empty(shape, dtype=_F32, device=dev)
+    outs = [z(b, a, k, t, 2), z(b, a, k, t, d), z(b, a, k, t, d),
+            z(nb, g * g * c), z(nb, f, 3 * d), z(nb, d, 3 * d), z(nb, 3 * d),
+            z(nb, 3 * d), z(nb, d, 4), z(nb, 4), z(nb)]
+    lib = _build.library()
+    ws = z(int(lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r)))
+    ptr_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
+    ptr_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
+    rc = lib.ioc_refine_bwd_launch(
+        int(cd == torch.bfloat16), ptr_in, ptr_out, ws.data_ptr(), b, a, k,
+        t, d, g, c, r, float(delta_scale),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"ioc_refine_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    _build.LAUNCHES["ioc_refine_bwd"] += 1
+    d_traj, d_dec, d_msg, fm_p, wi_p, wh_p, bi_p, bh_p, hw_p, hb_p, lt_p = outs
+    hw, hb = hw_p.sum(0), hb_p.sum(0)
+    grads_gru = {"wi": wi_p.sum(0), "wh": wh_p.sum(0), "bi": bi_p.sum(0),
+                 "bh": bh_p.sum(0)}
+    grads_heads = {"score": {"w": hw[:, 0:1], "b": hb[0:1]},
+                   "gate": {"w": hw[:, 1:2], "b": hb[1:2]},
+                   "delta": {"w": hw[:, 2:4], "b": hb[2:4]}}
+    d_fmap = fm_p.reshape(b, k, g, g, c).sum(1)
+    return (d_traj, d_dec, d_msg, d_fmap, grads_gru, grads_heads,
+            lt_p.sum())
+
+
+class _TrainableIoc(torch.autograd.Function):
+    """Forward: the IOC kernel with collect_iters. Backward: the backward
+    kernel, then the message product's chain rule."""
+
+    @staticmethod
+    def forward(ctx, num_refine, delta_scale, traj, dec_h, feat_map, live,
+                fut_mask, msg_w, msg_b, ltau, *leaves):
+        p_ioc, p_scf = _trees(leaves, msg_w, msg_b, ltau)
+        w = pack_ioc(p_ioc, p_scf, dec_h.dtype, traj.device, traj.shape[1])
+        refined, scores, iters = ioc_refine_cuda(
+            w, traj, dec_h, feat_map, live, fut_mask, num_refine=num_refine,
+            delta_scale=delta_scale, collect_iters=True)
+        ctx.save_for_backward(traj, dec_h, feat_map, live, fut_mask, iters,
+                              msg_w, msg_b, ltau, *leaves)
+        ctx.consts = num_refine, delta_scale
+        # scores reach the loss in the compute dtype, as the plain path
+        # gives them (ioc_fused.py:979 of the JAX package)
+        return refined, scores.to(dec_h.dtype), iters
+
+    @staticmethod
+    def backward(ctx, d_refined, d_scores, d_iters):
+        (traj, dec_h, feat_map, live, fut_mask, iters, msg_w, msg_b, ltau,
+         *leaves) = ctx.saved_tensors
+        num_refine, delta_scale = ctx.consts
+        p_ioc, p_scf = _trees(leaves, msg_w, msg_b, ltau)
+
+        def ct(x, shape):       # an output autograd saw unused gets None
+            return (torch.zeros(shape, dtype=_F32, device=traj.device)
+                    if x is None else x.float().contiguous())
+
+        msg = social_messages(p_scf, dec_h).contiguous()
+        (d_traj, d_dec, d_msg, d_fmap, g_gru, g_heads,
+         d_ltau) = ioc_refine_bwd_cuda(
+            p_ioc, p_scf, traj, dec_h, msg, feat_map, live, fut_mask, iters,
+            ct(d_refined, traj.shape), ct(d_scores, traj.shape[:3]),
+            ct(d_iters, iters.shape), num_refine=num_refine,
+            delta_scale=delta_scale)
+        cd = dec_h.dtype
+        # chain msg = dec_h Wmsg + bmsg into dec_h and the message weights
+        d_msg = d_msg.to(cd).float()
+        d_dec = d_dec.to(cd) + (d_msg @ msg_w.float().t()).to(cd)
+        d_wmsg = torch.einsum("baktd,bakto->do", dec_h.float(), d_msg)
+        d_bmsg = d_msg.sum(dim=(0, 1, 2, 3))
+        grads = {("gru", n): g_gru[n] for n in ("wi", "wh", "bi", "bh")}
+        for h in ("score", "gate", "delta"):
+            for n in ("w", "b"):
+                grads[(h, n)] = g_heads[h][n]
+        leaf_grads = [grads[path].to(v.dtype)
+                      for path, v in zip(_IOC_LEAVES, leaves)]
+        return (None, None, d_traj, d_dec, d_fmap.to(feat_map.dtype), None,
+                None, d_wmsg.to(msg_w.dtype), d_bmsg.to(msg_b.dtype),
+                d_ltau.to(ltau.dtype).reshape(ltau.shape), *leaf_grads)
+
+
+def ioc_refine_train(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
+                     num_refine, delta_scale, social_freeze=False):
+    """The trainable rank-and-refine on the tensors' device: (refined
+    (B, A, K, T, 2) f32, scores (B, A, K) in dec_h's dtype, per-pass
+    positions (R, B, A, K, T, 2) f32), differentiable in traj, dec_h,
+    feat_map and the IOC and message parameters.
+
+    CUDA tensors run the training forward kernel and the backward kernel;
+    CPU tensors the plain version under autograd. The backward kernel does
+    not cover social_freeze."""
+    kw = dict(num_refine=num_refine, delta_scale=delta_scale)
+    if traj.is_cuda:
+        if social_freeze:
+            raise NotImplementedError(
+                "the IOC backward kernel does not cover social_freeze")
+        leaves = [_ioc_leaf(p_ioc, path) for path in _IOC_LEAVES]
+        return _TrainableIoc.apply(
+            int(num_refine), float(delta_scale), traj.float().contiguous(),
+            dec_h.contiguous(), feat_map.contiguous(),
+            live.float().contiguous(), fut_mask.float().contiguous(),
+            p_scf["soc_msg"]["w"], p_scf["soc_msg"]["b"],
+            p_scf["soc_logtau"], *leaves)
+    if traj.device.type == "cpu":
+        refined, scores, iters = ioc_refine_plain(
+            p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask,
+            social_freeze=social_freeze, collect_iters=True, **kw)
+        return refined, scores.to(dec_h.dtype), iters
+    raise ValueError(f"no IOC kernel for device {traj.device}")

@@ -1,6 +1,5 @@
 """The fused IOC rank-and-refine loop: CUDA kernel wrapper and its plain
-PyTorch version (port of the inference variant of
-``desire_tpu/ops/ioc_fused.py``).
+PyTorch version (port of ``desire_tpu/ops/ioc_fused.py``).
 
 Per (batch row, hypothesis lane), ``num_refine`` passes and a final
 re-score. Each step t of a pass builds the score-GRU input from four
@@ -17,6 +16,9 @@ blocks and advances the GRU:
 The heads give [psi | gate | dx | dy] per step. After a pass,
 traj += tanh(d) * sigmoid(gate) * delta_scale * fut_mask; the final pass
 moves nothing and scores each lane sum_t psi * fut_mask (ascending t).
+With collect_iters (the training forward) every refine pass's positions
+come out too, (num_refine, B, A, K, T, 2); the backward is
+``ops/ioc_bwd.py``.
 
 Numerics follow the TPU kernel: products round their operands to the
 compute dtype and accumulate in float32; positions, distances and the
@@ -79,10 +81,17 @@ def _scene(feat_map, px, py, cd):
 
 
 def ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
-                     num_refine, delta_scale, social_freeze=False):
+                     num_refine, delta_scale, social_freeze=False,
+                     collect_iters=False):
     """Plain PyTorch version of the IOC kernel: the inputs and outputs of
-    :func:`ioc_refine_cuda`, read from the param trees. Under social_freeze the social block is pooled
-    once at the initial positions and reused by every pass."""
+    :func:`ioc_refine_cuda`, read from the param trees. Under social_freeze
+    the social block is pooled once at the initial positions and reused by
+    every pass.
+
+    It is differentiable, with the stop-gradients of
+    ``models/ioc.ioc_forward``: the final re-score reads detached positions
+    (under social_freeze, its social block is pooled at the detached
+    initial positions), so the ranking never moves a hypothesis."""
     cd = dec_h.dtype
     b, a, k, t, _ = traj.shape
     d = dec_h.shape[-1]
@@ -93,6 +102,7 @@ def ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
     # (B, K, T, A, ·) layout: a lane's agents at one step are one slab
     x = traj[..., 0].float().permute(0, 2, 3, 1)
     y = traj[..., 1].float().permute(0, 2, 3, 1)
+    x0, y0 = x, y
     dec = dec_h.permute(0, 2, 3, 1, 4)
     msg = (_mm(dec, p_scf["soc_msg"]["w"], cd).to(cd)
            + p_scf["soc_msg"]["b"].to(cd)).to(_F32)
@@ -115,12 +125,20 @@ def ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
 
     soc0 = attend(x, y) if social_freeze else None
     scores = None
+    iters = []
     for ip in range(num_refine + 1):
-        soc = soc0 if social_freeze else attend(x, y)
-        vx = x - torch.cat([x[:, :, :1], x[:, :, :-1]], dim=2)
-        vy = y - torch.cat([y[:, :, :1], y[:, :, :-1]], dim=2)
+        # the re-score reads detached positions: it moves no hypothesis
+        px, py = (x, y) if ip < num_refine else (x.detach(), y.detach())
+        if not social_freeze:
+            soc = attend(px, py)
+        elif ip < num_refine:
+            soc = soc0
+        else:
+            soc = attend(x0.detach(), y0.detach())
+        vx = px - torch.cat([px[:, :, :1], px[:, :, :-1]], dim=2)
+        vy = py - torch.cat([py[:, :, :1], py[:, :, :-1]], dim=2)
         gi = (vx[..., None] * wiv[0] + vy[..., None] * wiv[1] + gi_dec
-              + _mm(_scene(feat_map, x, y, cd), w["wis"], cd)
+              + _mm(_scene(feat_map, px, py, cd), w["wis"], cd)
               + _mm(soc, w["wio"], cd))
         h = x.new_zeros((b, k, a, d))
         outs = []
@@ -139,12 +157,18 @@ def ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
             m = fmask * delta_scale
             x = x + torch.tanh(out[..., 2]) * gate * m
             y = y + torch.tanh(out[..., 3]) * gate * m
+            if collect_iters:
+                iters.append(torch.stack([x, y], dim=-1).permute(0, 3, 1, 2,
+                                                                 4))
         else:
             scores = torch.zeros_like(out[:, :, 0, :, 0])
             for s in range(t):
                 scores = scores + out[:, :, s, :, 0] * fmask[:, :, s]
     refined = torch.stack([x, y], dim=-1).permute(0, 3, 1, 2, 4)
-    return refined.contiguous(), scores.permute(0, 2, 1).contiguous()
+    out = refined.contiguous(), scores.permute(0, 2, 1).contiguous()
+    if collect_iters:
+        out += (torch.stack(iters).contiguous(),)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,14 +225,17 @@ def pack_ioc(p_ioc, p_scf, compute_dtype, device, max_agents) -> IocWeights:
 
 
 def ioc_refine_cuda(w: IocWeights, traj, dec_h, feat_map, live, fut_mask, *,
-                    num_refine, delta_scale, social_freeze=False):
+                    num_refine, delta_scale, social_freeze=False,
+                    collect_iters=False):
     """Launch the IOC kernel (``csrc/ioc_refine.cu``) on CUDA tensors, with
     the weights of :func:`pack_ioc`.
 
     traj (B, A, K, T, 2) f32; dec_h (B, A, K, T, d) compute dtype (float32
     or bfloat16); feat_map (B, G, G, C) compute dtype; live (B, A) f32;
     fut_mask (B, A, T) f32. Returns (refined (B, A, K, T, 2) f32,
-    scores (B, A, K) f32)."""
+    scores (B, A, K) f32), and with collect_iters every refine pass's
+    positions (num_refine, B, A, K, T, 2) f32 (counted as the training
+    forward, ``ioc_refine_train``)."""
     if not traj.is_cuda:
         raise ValueError("ioc_refine_cuda needs CUDA tensors")
     cd, dev = w.compute_dtype, traj.device
@@ -226,16 +253,22 @@ def ioc_refine_cuda(w: IocWeights, traj, dec_h, feat_map, live, fut_mask, *,
         raise ValueError(f"weights on {w.tensors[0].device}, inputs on {dev}")
     refined = torch.empty((b, a, k, t, 2), dtype=_F32, device=dev)
     scores = torch.empty((b, a, k), dtype=_F32, device=dev)
+    iters = (torch.empty((num_refine, b, a, k, t, 2), dtype=_F32, device=dev)
+             if collect_iters else None)
     ptrs = [traj, dec_h, feat_map, live, fut_mask, *w.tensors, refined,
             scores]
     rc = _build.library().ioc_refine_launch(
         int(cd == torch.bfloat16), int(w.use_mma),
         *[x.data_ptr() for x in ptrs],
+        None if iters is None else iters.data_ptr(),
         b, a, k, t, w.d, g, w.c, int(num_refine), int(bool(social_freeze)),
         float(delta_scale),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"ioc_refine kernel launch failed: CUDA error {rc}")
+    if collect_iters:
+        _build.LAUNCHES["ioc_refine_train"] += 1
+        return refined, scores, iters
     _build.LAUNCHES["ioc_refine"] += 1
     return refined, scores
 

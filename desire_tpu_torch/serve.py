@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from desire_tpu.config import DesireConfig
+from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.eval import metrics as M
 from desire_tpu_torch.models import desire
 from desire_tpu_torch.params import to_device

@@ -1,0 +1,124 @@
+"""Train state and the optimizer (PyTorch port of
+``desire_tpu/train/state.py``).
+
+The JAX package trains with ``optax.chain(clip_by_global_norm(grad_clip),
+adam(exponential_decay(lr, steps_per_epoch, decay_rate, staircase=True)))``.
+This module reproduces that chain step for step, not PyTorch's own
+optimizers:
+
+* clip by global norm: g <- (g / |g|) * max_norm only when |g| >= max_norm
+  (no epsilon), |g| summed over the leaves in the JAX tree order;
+* Adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected moments;
+* the rate lr * decay_rate ** floor(count / steps_per_epoch), count being
+  the optimizer's own update count before this update.
+
+Parameters are a tree (nested dicts and lists) of float32 tensors; each
+update returns a new tree and leaves the old one as it was.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from desire_tpu_torch.config import DesireConfig
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def tree_leaves(tree):
+    """Leaves in the JAX package's flattening order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` with ``leaves`` (tree_leaves order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(like)
+
+
+def global_norm(leaves):
+    """sqrt of the sum over leaves of each leaf's sum of squares."""
+    total = None
+    for g in leaves:
+        s = (g.float() * g.float()).sum()
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """step: updates taken; params: the parameter tree; mu, nu: Adam's
+    moments (same tree); count: the optimizer's update count; generator:
+    the source of every random draw of the training steps."""
+    step: int
+    params: dict
+    mu: dict
+    nu: dict
+    count: int
+    generator: torch.Generator
+
+
+def learning_rate(cfg: DesireConfig, steps_per_epoch: int, count: int):
+    """optax.exponential_decay(staircase=True) at update count ``count``,
+    in float32."""
+    epochs = count // max(int(steps_per_epoch), 1)
+    decay = torch.tensor(cfg.decay_rate, dtype=torch.float32) ** epochs
+    return torch.tensor(cfg.learning_rate, dtype=torch.float32) * decay
+
+
+def create_train_state(cfg: DesireConfig, params, seed=None) -> TrainState:
+    """Fresh state: step 0, zero moments, a generator seeded with ``seed``
+    (cfg.seed by default) on the params' device."""
+    leaves = tree_leaves(params)
+    dev = leaves[0].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed if seed is None else int(seed))
+    zeros = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
+    zeros2 = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
+    return TrainState(step=0, params=params, mu=zeros, nu=zeros2, count=0,
+                      generator=gen)
+
+
+@torch.no_grad()
+def apply_updates(cfg: DesireConfig, steps_per_epoch: int,
+                  state: TrainState, grads):
+    """One optimizer update from the gradient tree ``grads``. Returns
+    (params, mu, nu, count) of the new state."""
+    p_l, g_l = tree_leaves(state.params), tree_leaves(grads)
+    m_l, v_l = tree_leaves(state.mu), tree_leaves(state.nu)
+    g_norm = global_norm(g_l)
+    max_norm = float(cfg.grad_clip)
+    clip = bool(g_norm >= max_norm)
+    count = state.count + 1
+    lr = learning_rate(cfg, steps_per_epoch, state.count)
+    bc1 = 1.0 - torch.tensor(B1, dtype=torch.float32) ** count
+    bc2 = 1.0 - torch.tensor(B2, dtype=torch.float32) ** count
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(p_l, g_l, m_l, v_l):
+        g = g.float()
+        if clip:
+            g = (g / g_norm) * max_norm
+        m = (1.0 - B1) * g + B1 * m
+        v = (1.0 - B2) * (g * g) + B2 * v
+        m_hat = m / bc1.to(m.device)
+        v_hat = v / bc2.to(v.device)
+        u = m_hat / (torch.sqrt(v_hat) + EPS)
+        new_p.append(p + u * (-lr).to(p.device))
+        new_m.append(m)
+        new_v.append(v)
+    return (tree_unflatten(state.params, new_p),
+            tree_unflatten(state.params, new_m),
+            tree_unflatten(state.params, new_v), count)

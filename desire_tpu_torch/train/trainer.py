@@ -1,0 +1,121 @@
+"""The training step and the epoch loop (PyTorch port of
+``desire_tpu/train/trainer.py``).
+
+One step: the optional speed-augmentation zoom, ``desire_loss`` and its
+gradients (through the training kernels on CUDA tensors), the gradient
+norm before clipping, the optimizer update (``train/state.py``) and
+step + 1. Every random draw comes from the state's generator.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from desire_tpu_torch.config import DesireConfig
+from desire_tpu_torch.models import desire
+from desire_tpu_torch.train.state import (TrainState, apply_updates,
+                                          global_norm, tree_leaves,
+                                          tree_unflatten)
+
+
+def make_train_step(cfg: DesireConfig, steps_per_epoch: int) -> Callable:
+    """step_fn(state, xy, mask, ids, noise=None) -> (new state, metrics).
+
+    noise: optional pinned draws of the step, the keys of
+    ``desire.desire_loss`` plus "zoom" (B,), the log zoom factors in
+    [-speed_aug, speed_aug) of the speed augmentation; missing ones come from state.generator. metrics are
+    the loss's, plus "grad_norm" of the gradients before clipping."""
+
+    def step_fn(state: TrainState, xy, mask, ids, noise=None):
+        gen = state.generator
+        xy = xy.float()
+        if cfg.speed_aug > 0:
+            # a global window zoom around the scene center, log-uniform in
+            # [e^-a, e^a], clipped to stay in the scene
+            log_s = (noise or {}).get("zoom")
+            if log_s is None:
+                log_s = (torch.rand((xy.shape[0],), generator=gen,
+                                    device=xy.device) * 2.0 - 1.0
+                         ) * cfg.speed_aug
+            s = torch.exp(torch.as_tensor(log_s, device=xy.device).reshape(
+                -1, 1, 1, 1))
+            xy = torch.clamp(0.5 + (xy - 0.5) * s, 0.0, 1.0)
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        total, metrics = desire.desire_loss(params, cfg, xy, mask, ids,
+                                            step=state.step, noise=noise,
+                                            generator=gen)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, leaves)]
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        p, mu, nu, count = apply_updates(cfg, steps_per_epoch, state,
+                                         tree_unflatten(state.params, grads))
+        return TrainState(step=state.step + 1, params=p, mu=mu, nu=nu,
+                          count=count, generator=gen), metrics
+
+    return step_fn
+
+
+class NonFiniteLossError(RuntimeError):
+    """Raised when training produces non-finite losses repeatedly: fail
+    fast instead of carrying NaN parameters on."""
+
+
+def _to_device(batch, device):
+    return tuple(torch.as_tensor(np.asarray(x, dtype=np.float32),
+                                 device=device)
+                 for x in (batch.xy, batch.mask, batch.ids))
+
+
+def run_epoch(state: TrainState, loader, epoch: int, step_fn,
+              log_fn=None, log_every: int = 20, start_batch: int = 0,
+              max_batches: int | None = None, max_bad_steps: int = 3):
+    """Drive one epoch over ``loader.epoch_batches(epoch, start_batch)``
+    (batches with xy, mask and ids arrays; the loader also carries
+    ``cfg.batch_size``). The batches go to the params' device. Returns
+    (state, mean loss)."""
+    device = tree_leaves(state.params)[0].device
+    losses_acc, t0 = [], time.time()
+    bad = 0
+    for bi, batch in enumerate(loader.epoch_batches(epoch, start_batch),
+                               start=start_batch):
+        if max_batches is not None and bi - start_batch >= max_batches:
+            break
+        xy, mask, ids = _to_device(batch, device)
+        state, metrics = step_fn(state, xy, mask, ids)
+        if bi % log_every == 0:
+            # the finiteness check rides the logging cadence: reading a
+            # value waits for the device
+            m = {k: float(v) for k, v in metrics.items()}
+            if not (np.isfinite(m["loss"])
+                    and np.isfinite(m.get("grad_norm", 0.0))):
+                # a non-finite gradient has already poisoned this update:
+                # the state is not handed to log_fn
+                bad += 1
+                if bad >= max_bad_steps:
+                    raise NonFiniteLossError(
+                        f"{bad} consecutive non-finite losses at epoch "
+                        f"{epoch} batch {bi}; resume from the last good "
+                        f"checkpoint")
+                continue
+            bad = 0
+            if log_fn is not None:
+                m.update(epoch=epoch, batch=bi, step=int(state.step),
+                         sec_per_batch=(time.time() - t0)
+                         / max(bi - start_batch + 1, 1))
+                log_fn(m, state)
+        losses_acc.append(metrics["loss"])
+    mean_loss = (float(np.mean([float(x) for x in losses_acc]))
+                 if losses_acc else float("nan"))
+    if losses_acc and not np.isfinite(mean_loss):
+        raise NonFiniteLossError(
+            f"epoch {epoch} mean loss is non-finite; resume from the last "
+            f"good checkpoint")
+    return state, mean_loss

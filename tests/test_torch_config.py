@@ -1,0 +1,96 @@
+"""The port's own DesireConfig against the JAX package's, field for field,
+and the port's import isolation: it imports neither JAX nor anything of
+the JAX package."""
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from desire_tpu import config as jconfig
+from desire_tpu_torch import config as tconfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_fields_and_defaults_match():
+    jf = [(f.name, f.type, f.default) for f in
+          dataclasses.fields(jconfig.DesireConfig)]
+    tf = [(f.name, f.type, f.default) for f in
+          dataclasses.fields(tconfig.DesireConfig)]
+    assert tf == jf
+    assert tconfig._PRE_FEATURE_DEFAULTS == jconfig._PRE_FEATURE_DEFAULTS
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(batch_size=64, max_num_obj=60, num_samples=20, d_dim=48,
+             latent_size=128, compute_dtype="bfloat16", num_refine=4),
+    dict(protocol="compat", rnn_size=50, use_social=False)])
+def test_to_json_and_properties_match(kw):
+    j, t = jconfig.DesireConfig(**kw), tconfig.DesireConfig(**kw)
+    assert t.to_json() == j.to_json()
+    for name, attr in vars(jconfig.DesireConfig).items():
+        if isinstance(attr, property):
+            assert getattr(t, name) == getattr(j, name), name
+    assert t.replace(seed=3).to_json() == j.replace(seed=3).to_json()
+
+
+def test_jax_json_loads_with_absent_key_backfill():
+    """A config saved by the JAX package loads in the port; keys absent
+    from it (an older checkpoint) take their pre-feature values."""
+    d = json.loads(jconfig.DesireConfig(num_samples=7).to_json())
+    assert tconfig.DesireConfig.from_json(json.dumps(d)).to_json() \
+        == jconfig.DesireConfig.from_json(json.dumps(d)).to_json()
+    for k in jconfig._PRE_FEATURE_DEFAULTS:
+        del d[k]
+    d["a_key_from_the_future"] = 1
+    old_t = tconfig.DesireConfig.from_json(json.dumps(d))
+    old_j = jconfig.DesireConfig.from_json(json.dumps(d))
+    assert old_t.to_json() == old_j.to_json()
+    for k, legacy in jconfig._PRE_FEATURE_DEFAULTS.items():
+        assert getattr(old_t, k) == legacy, k
+
+
+def test_validation_matches():
+    for bad in (dict(model="lstm"), dict(holdout="scene"),
+                dict(vae_dec="deconv"), dict(rnn_size=100)):
+        for mod in (jconfig, tconfig):
+            with pytest.raises(ValueError):
+                mod.DesireConfig(**bad)
+
+
+def test_flags_match():
+    argv = ["--num_samples", "9", "--use_social", "false", "--d_dim", "32"]
+    cfgs = []
+    for mod in (jconfig, tconfig):
+        parser = argparse.ArgumentParser()
+        mod.add_config_flags(parser)
+        cfgs.append(mod.config_from_args(parser.parse_args(argv)))
+    assert cfgs[1].to_json() == cfgs[0].to_json()
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter: desire_tpu_torch, all its submodules and
+    chip_smoke, and then neither jax nor desire_tpu is loaded."""
+    code = """
+import importlib, pkgutil, sys
+import desire_tpu_torch
+for m in pkgutil.walk_packages(desire_tpu_torch.__path__, "desire_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith(("jax.", "jaxlib"))
+             or n == "desire_tpu" or n.startswith("desire_tpu."))
+assert not bad, bad
+print(len([n for n in sys.modules if n.startswith("desire_tpu_torch")]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15

@@ -130,3 +130,136 @@ def test_ioc_kernel_matches_plain(cuda_device, dtype, c, a, social_freeze):
         np.testing.assert_allclose(g_sc, r_sc, rtol=0, atol=0.1)
         assert np.abs(g_traj - r_traj).mean() < 2e-4
         assert np.abs(g_sc - r_sc).mean() < 5e-3
+
+
+def _ioc_train_case(cuda_device, dtype, c, a, seed=1):
+    cfg = _cfg(scene_channels=c, compute_dtype=dtype, max_num_obj=a)
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    p = _params(cfg, cuda_device)
+    b, k, t, d = 2, 3, 6, 16
+    rng = np.random.default_rng(seed)
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=cuda_device).to(dt)
+    live = (rng.random((b, a)) > 0.3).astype(np.float32)
+    live[:, 0] = 1.0
+    fut = np.ones((b, a, t))
+    fut[:, :, -1] = 0.0
+    args = (f(rng.uniform(0.2, 0.8, (b, a, k, t, 2))),
+            f(np.tanh(rng.standard_normal((b, a, k, t, d))), cd),
+            f(rng.standard_normal((b, 8, 8, c)), cd), f(live), f(fut))
+    wts = f(rng.standard_normal((b, a, k)))
+    return cfg, p, args, wts
+
+
+def _ioc_train_grads(p, args, wts, kernel):
+    """Gradients of the JAX kernel suite's IOC test loss for the inputs and
+    every IOC and message parameter, through the kernels or autograd
+    through the plain version."""
+    from desire_tpu_torch.ops import ioc_bwd
+    from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
+    traj, dec_h, fmap, live, fut = args
+    trees = {"ioc": p["ioc"], "scf": {"soc_msg": p["scf"]["soc_msg"],
+                                      "soc_logtau": p["scf"]["soc_logtau"]}}
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in tree_leaves(trees)]
+    trees = tree_unflatten(trees, leaves)
+    ins = [x.detach().clone().requires_grad_(True)
+           for x in (traj, dec_h, fmap)]
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE)
+    if kernel:
+        refined, scores, iters = ioc_bwd.ioc_refine_train(
+            trees["ioc"], trees["scf"], *ins, live, fut, **kw)
+    else:
+        refined, scores, iters = ioc_fused.ioc_refine_plain(
+            trees["ioc"], trees["scf"], *ins, live, fut, collect_iters=True,
+            **kw)
+    loss = ((refined ** 2).sum() + (scores.float() * wts).sum()
+            + (iters ** 2).sum() + torch.sin(refined).sum())
+    return torch.autograd.grad(loss, leaves + ins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,a", [("float32", 8, 5),
+                                       ("bfloat16", 16, 5),
+                                       ("bfloat16", 8, 70)])
+def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a):
+    """The training forward (collect_iters) and the backward kernel against
+    autograd through the plain version, every input and parameter leaf.
+    f32: the JAX kernel suite's gradient tolerances. bf16: relative L2
+    error of each leaf (the kernel keeps cotangents in float32 where
+    autograd rounds them to bf16 at every cast)."""
+    from desire_tpu_torch.ops import ioc_bwd
+    cfg, p, args, wts = _ioc_train_case(cuda_device, dtype, c, a)
+    before = {n: _build.LAUNCHES[n] for n in ("ioc_refine_train",
+                                              "ioc_refine_bwd")}
+    got = _ioc_train_grads(p, args, wts, kernel=True)
+    assert all(_build.LAUNCHES[n] == before[n] + 1 for n in before)
+    ref = _ioc_train_grads(p, args, wts, kernel=False)
+    for g, r in zip(got, ref):
+        g, r = g.float().cpu(), r.float().cpu()
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=2e-3,
+                                       atol=2e-4)
+        else:
+            assert float((g - r).norm() / max(float(r.norm()), 1e-30)) \
+                < 0.05
+    w = ioc_fused.pack_ioc(p["ioc"], p["scf"], args[1].dtype, cuda_device,
+                           a)
+    outs = ioc_fused.ioc_refine_cuda(w, *args, num_refine=2,
+                                     delta_scale=_DELTA_SCALE,
+                                     collect_iters=True)
+    plain = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args,
+                                       num_refine=2,
+                                       delta_scale=_DELTA_SCALE,
+                                       collect_iters=True)
+    np.testing.assert_allclose(outs[2].cpu().numpy(),
+                               plain[2].cpu().numpy(), rtol=0,
+                               atol=2e-5 if dtype == "float32" else 5e-3)
+    with pytest.raises(NotImplementedError):
+        ioc_bwd.ioc_refine_train(p["ioc"], p["scf"], *args, num_refine=2,
+                                 delta_scale=_DELTA_SCALE,
+                                 social_freeze=True)
+
+
+@pytest.mark.cuda
+def test_ioc_backward_kernel_is_deterministic(cuda_device):
+    """Two runs on the same inputs give bitwise-equal gradients."""
+    cfg, p, args, wts = _ioc_train_case(cuda_device, "bfloat16", 16, 5)
+    first = _ioc_train_grads(p, args, wts, kernel=True)
+    second = _ioc_train_grads(p, args, wts, kernel=True)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,t", [(9, 3, 6), (300, 20, 12)])
+def test_nll_kernels_match_plain(cuda_device, n, k, t):
+    """The NLL forward and backward kernels against the plain version and
+    its autograd, with rows where the log-density floor is active (zero
+    gradient there)."""
+    from desire_tpu_torch.ops import nll
+    rng = np.random.default_rng(n)
+    raw5 = rng.standard_normal((n, k, t, 5)) * 0.5
+    tgt = rng.uniform(0.2, 0.8, (n, t, 2))
+    raw5[..., :2] += tgt[:, None]
+    raw5[::7, ..., :2] = tgt[::7, None] + 5.0
+    raw5[::7, ..., 2:4] = -8.0
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                  device=cuda_device)
+    raw5, tgt = f(raw5), f(tgt)
+    mask = f(rng.random((n, t)) > 0.1)
+    r = raw5.clone().requires_grad_(True)
+    before = (_build.LAUNCHES["nll_fwd"], _build.LAUNCHES["nll_bwd"])
+    got = nll.bivariate_nll_sum(r, tgt, mask)
+    ref = nll.bivariate_nll_plain(raw5, tgt, mask)
+    np.testing.assert_allclose(got.detach().cpu().numpy(),
+                               ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    g = f(rng.standard_normal((n, k)))
+    g_got, = torch.autograd.grad((got * g).sum(), [r])
+    assert (_build.LAUNCHES["nll_fwd"], _build.LAUNCHES["nll_bwd"]) == (
+        before[0] + 1, before[1] + 1)
+    r2 = raw5.clone().requires_grad_(True)
+    g_ref, = torch.autograd.grad(
+        (nll.bivariate_nll_plain(r2, tgt, mask) * g).sum(), [r2])
+    np.testing.assert_allclose(g_got.cpu().numpy(), g_ref.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert float(g_got[::7].abs().max()) == 0.0

@@ -1,8 +1,9 @@
 """Port parity of IOC rank-and-refine: the fused kernel's plain version
 against the JAX Pallas kernel's inference variant (in-kernel messages,
-interpret mode) and against the JAX ioc_forward, and the port's ioc_forward
-against the JAX one (f32). The CUDA kernel is held against the plain
-version in tests/test_torch_cuda.py."""
+interpret mode) and against the JAX ioc_forward, the port's ioc_forward
+against the JAX one, and the gradients of the port's trainable IOC and of
+its ioc_forward against jax.grad of the JAX ioc_forward (f32). The CUDA
+kernels are held against the plain versions in tests/test_torch_cuda.py."""
 
 import functools
 
@@ -19,7 +20,9 @@ from desire_tpu.ops.ioc_fused import ioc_refine_fused
 from desire_tpu_torch.models import ioc as tioc
 from desire_tpu_torch.models import scf as tscf
 from desire_tpu_torch.ops import ioc_fused as tops
+from desire_tpu_torch.ops import ioc_refine_train
 from desire_tpu_torch.params import from_jax, to_numpy
+from desire_tpu_torch.train.state import tree_leaves
 
 # the JAX kernel suite's f32 tolerances (tests/test_kernels.py)
 TRAJ_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -124,3 +127,65 @@ def test_social_pool_lone_agent_is_zero():
                            jnp.asarray(live))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TRAJ_TOL)
     assert float(out[:, 0].abs().max()) == 0.0
+
+
+# the JAX kernel suite's gradient tolerances (tests/test_kernels.py), f32
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+
+
+def _grad_loss(refined, scores, iters, wts, xp):
+    """tests/test_kernels.py's IOC gradient test loss."""
+    return (xp.sum(refined ** 2) + xp.sum(scores * wts) + xp.sum(iters ** 2)
+            + xp.sum(xp.sin(refined)))
+
+
+@functools.cache
+def _ioc_grad_ref(live_mode, social_freeze):
+    """jax.grad of that loss through the JAX ioc_forward, for every
+    parameter leaf and the traj, dec_h and feat_map inputs (jitted once)."""
+    cfg, p_ioc, p_scf, arrays = _env(live_mode, social_freeze)
+    traj, dec_h, feat_map, live, fut = map(jnp.asarray, arrays)
+    wts = np.random.default_rng(9).standard_normal(
+        live.shape + (cfg.num_samples,)).astype(np.float32)
+
+    def loss(p_ioc, p_scf, traj, dec_h, feat_map):
+        refined, scores, per_iter = jioc.ioc_forward(
+            p_ioc, p_scf, cfg, traj, dec_h, feat_map, live, fut)
+        return _grad_loss(refined, scores, jnp.stack(per_iter), wts, jnp)
+
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+        p_ioc, p_scf, traj, dec_h, feat_map)
+    return wts, grads
+
+
+@pytest.mark.parametrize("path", ["trainable", "ioc_forward"])
+@pytest.mark.parametrize("live_mode,social_freeze", CASES)
+def test_ioc_gradients_match_jax(path, live_mode, social_freeze):
+    """Gradients of the port's trainable IOC (ops.ioc_refine_train; its
+    plain version on CPU tensors) and of its ioc_forward against jax.grad
+    of the JAX ioc_forward, for every parameter and input leaf."""
+    cfg, p_ioc, p_scf, arrays = _env(live_mode, social_freeze)
+    wts, ref = _ioc_grad_ref(live_mode, social_freeze)
+    tp_ioc, tp_scf = from_jax(p_ioc), from_jax(p_scf)
+    # the leaves in JAX's flattening order, which the reference grads use
+    param_leaves = tree_leaves([tp_ioc, tp_scf])
+    for x in param_leaves:
+        x.requires_grad_(True)
+    traj, dec_h, feat_map, live, fut = (torch.from_numpy(x) for x in arrays)
+    ins = [x.requires_grad_(True) for x in (traj, dec_h, feat_map)]
+    if path == "trainable":
+        refined, scores, iters = ioc_refine_train(
+            tp_ioc, tp_scf, *ins, live, fut, num_refine=cfg.num_refine,
+            delta_scale=tioc._DELTA_SCALE, social_freeze=social_freeze)
+    else:
+        refined, scores, per_iter = tioc.ioc_forward(
+            tp_ioc, tp_scf, cfg, *ins, live, fut)
+        iters = torch.stack(per_iter)
+    loss = _grad_loss(refined, scores, iters, torch.from_numpy(wts), torch)
+    flat_ref = jax.tree_util.tree_leaves_with_path(ref)
+    got = torch.autograd.grad(loss, param_leaves + ins, allow_unused=True)
+    assert len(got) == len(flat_ref)
+    for (kp, r), g in zip(flat_ref, got):
+        g = np.zeros(r.shape, np.float32) if g is None else g.numpy()
+        np.testing.assert_allclose(g, np.asarray(r), err_msg=str(kp),
+                                   **GRAD_TOL)

@@ -76,11 +76,11 @@ def test_init_desire_matches_jax_structure(variant):
 
 
 def test_port_imports_no_jax():
-    """A CPU forward through the port leaves JAX out of the process and
-    loads only desire_tpu.config from the JAX package."""
+    """A CPU forward through the port leaves JAX and the JAX package out of
+    the process: the port keeps its own DesireConfig."""
     code = textwrap.dedent("""
         import sys, torch
-        from desire_tpu.config import DesireConfig
+        from desire_tpu_torch import DesireConfig
         from desire_tpu_torch.models.desire import desire_forward
         from desire_tpu_torch.params import init_desire
         from desire_tpu_torch import serve
@@ -97,8 +97,7 @@ def test_port_imports_no_jax():
         assert torch.isfinite(out["refined_traj"]).all()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                     or (m.startswith("desire_tpu.")
-                         and m != "desire_tpu.config"))
+                     or m == "desire_tpu" or m.startswith("desire_tpu."))
         print("BAD", bad)
         assert not bad, bad
     """)
@@ -117,7 +116,8 @@ def test_cpu_dispatch_takes_plain_versions():
                          torch.ones(2, 4),
                          generator=torch.Generator().manual_seed(1))
     assert out["scores"].shape == (2, 4, 3)
-    assert ops.LAUNCHES == {"sgm_sample": 0, "ioc_refine": 0}
+    assert {"sgm_sample", "ioc_refine"} <= set(ops.LAUNCHES)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -135,7 +135,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 4, k, t, 2), torch.zeros(1, 4, k, t, 16),
             torch.zeros(1, 8, 8, 4), torch.ones(1, 4), torch.ones(1, 4, t),
             num_refine=2, delta_scale=0.1)
-    assert ops.LAUNCHES == {"sgm_sample": 0, "ioc_refine": 0}
+    from desire_tpu_torch.ops import ioc_bwd, nll
+    raw5, tgt, m = torch.zeros(n, k, t, 5), torch.zeros(n, t, 2), \
+        torch.ones(n, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        nll.nll_fwd_cuda(raw5, tgt, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        nll.nll_bwd_cuda(raw5, tgt, m, torch.ones(n, k))
+    z = torch.zeros(1, 4, k, t, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ioc_bwd.ioc_refine_bwd_cuda(
+            p["ioc"], p["scf"], z, torch.zeros(1, 4, k, t, 16),
+            torch.zeros(1, 4, k, t, 16), torch.zeros(1, 8, 8, 4),
+            torch.ones(1, 4), torch.ones(1, 4, t), z[None].repeat(2, 1, 1, 1,
+                                                               1, 1),
+            z, torch.zeros(1, 4, k), z[None].repeat(2, 1, 1, 1, 1, 1),
+            num_refine=2, delta_scale=0.1)
+    assert {"sgm_sample", "ioc_refine", "ioc_refine_train", "ioc_refine_bwd",
+            "nll_fwd", "nll_bwd"} <= set(ops.LAUNCHES)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 @pytest.mark.parametrize("dtype,agents,mma", [
