@@ -24,8 +24,19 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    against the plain step on the CPU, takes five ``run_epoch`` steps at the
    flagship training shape and checks that every training kernel was
    launched by them, and times the step and each kernel against the plain
-   versions;
-7. prints one JSON line of per-kernel results, then, last, the device line.
+   versions; all of it also with social_freeze (the IOC backward's
+   frozen-attention variant), three steps;
+7. the layer-by-layer IOC path (use_social=False, fused_train=False):
+   holds the scene-pool kernels against their plain versions (float32 at
+   small shapes with edge positions, bfloat16 at the flagship), the float32
+   forward with use_social=False and one float32 step with
+   fused_train=False on the card against the CPU, serves three requests
+   with use_social=False, takes three run_epoch steps with fused_train=False
+   (remat off and on: same losses, peak memory) and with use_social=False,
+   checks that the scene-pool kernels were launched by them, and times the
+   kernels against their plain versions and grid_sample, the serving
+   forward and the training steps;
+8. prints one JSON line of per-kernel results, then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -80,13 +91,14 @@ def flagship_cfg(**kw):
     return DesireConfig(**base)
 
 
-def small_cfg():
+def small_cfg(**kw):
     from desire_tpu_torch import DesireConfig
-    return DesireConfig(batch_size=2, max_num_obj=5, obs_len=5, pred_len=6,
-                        num_samples=3, d_dim=16, latent_size=8,
-                        embedding_size=8, channel_multiplier=10,
-                        rnn_size=128, scene_grid=8, scene_channels=8,
-                        num_refine=2, compute_dtype="float32")
+    base = dict(batch_size=2, max_num_obj=5, obs_len=5, pred_len=6,
+                num_samples=3, d_dim=16, latent_size=8, embedding_size=8,
+                channel_multiplier=10, rnn_size=128, scene_grid=8,
+                scene_channels=8, num_refine=2, compute_dtype="float32")
+    base.update(kw)
+    return DesireConfig(**base)
 
 
 def make_params(cfg, device, seed=0):
@@ -191,19 +203,21 @@ def time_ms(fn, repeats=5, iters=3):
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the model's two kernel call sites to the plain versions (for
-    timing the plain forward on the same card)."""
+    """Route the model's serving kernel call sites (sampler, IOC, scene
+    pool) to the plain versions (for timing the plain forward on the same
+    card)."""
     from desire_tpu_torch import ops
-    from desire_tpu_torch.ops import ioc_fused, sgm_fused
-    saved = ops.sgm_sample_decode, ops.ioc_refine
+    from desire_tpu_torch.ops import ioc_fused, scene_pool, sgm_fused
+    saved = ops.sgm_sample_decode, ops.ioc_refine, ops.bilinear_pool
     ops.sgm_sample_decode = lambda *a, weights=None, **kw: (
         sgm_fused.sgm_sample_decode_plain(*a, **kw))
     ops.ioc_refine = lambda *a, weights=None, **kw: (
         ioc_fused.ioc_refine_plain(*a, **kw))
+    ops.bilinear_pool = scene_pool.bilinear_pool_plain
     try:
         yield
     finally:
-        ops.sgm_sample_decode, ops.ioc_refine = saved
+        ops.sgm_sample_decode, ops.ioc_refine, ops.bilinear_pool = saved
 
 
 def synthetic_windows(cfg, rng, count):
@@ -276,13 +290,15 @@ def ioc_fwd_work(cfg, b, iters_out=False):
     return nbytes, 2 * (r + 1) * t * rows * mac
 
 
-def ioc_bwd_work(cfg, b):
+def ioc_bwd_work(cfg, b, social_freeze=False):
     """(bytes, flops) of the IOC backward: its inputs (levels, dec_h, msg,
     feature map, masks, cotangents) read once and its outputs (d_traj,
     d_dec, d_msg, d_feat_map) written once; per pass, step and agent row
     the recomputed forward products (messages come precomputed) and the
     adjoint products: hidden, dec/scene/social cotangents, weight
-    gradients, the pooling adjoint."""
+    gradients, the pooling adjoint. Under social_freeze the social pool
+    runs once per step and its adjoint once per step after the passes (the
+    pooling adjoint twice: both buckets, then the refine bucket)."""
     a, k, t, d = cfg.max_num_obj, cfg.num_samples, cfg.pred_len, cfg.d_dim
     g, c, r = cfg.scene_grid, cfg.scene_channels, max(cfg.num_refine, 1)
     cs = 2 if cfg.compute_dtype == "bfloat16" else 4
@@ -294,7 +310,24 @@ def ioc_bwd_work(cfg, b):
               + rows * t * 2 * 4 + 2 * rows * t * d * 4 + b * g * g * c * 4)
     fwd = a * d + (2 * d + c) * 3 * d + d * 3 * d + 2 * d * 4
     adj = 3 * d * d + 3 * d * (2 * d + c) + (f + d) * 3 * d + 2 * a * d
-    return nbytes, 2 * (r + 1) * t * rows * (fwd + adj)
+    if not social_freeze:
+        return nbytes, 2 * (r + 1) * t * rows * (fwd + adj)
+    per_pass = fwd - a * d + adj - 2 * a * d
+    once = a * d + 2 * a * d + a * d      # pool; d_msg and two d att
+    return nbytes, 2 * t * rows * ((r + 1) * per_pass + once)
+
+
+def scene_pool_work(b, p, g, c, cs, backward=False):
+    """(bytes, flops) of the scene pooling: positions (8 bytes a point) and
+    the map read once, the (B, P, C) result written once; 4 multiply-adds
+    per (point, channel). The gradient reads the positions, the cotangent
+    and the map and writes d_map and d_pos (float32); 4 multiply-adds per
+    (point, channel) into d_map and ~8 operations per (point, channel) for
+    d_pos."""
+    nbytes = b * p * 8 + b * g * g * c * cs + b * p * c * cs
+    if not backward:
+        return nbytes, 8 * b * p * c
+    return nbytes + b * g * g * c * cs + b * p * 8, 16 * b * p * c
 
 
 def nll_work(n, k, t, backward=False):
@@ -352,7 +385,7 @@ def tree_paths(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def ioc_train_outputs(params, cfg, args, kernel):
+def ioc_train_outputs(params, cfg, args, kernel, social_freeze=False):
     """The training IOC's (refined, scores, iters) and its differentiable
     leaves (inputs, then the IOC and message parameters), by name: through
     the kernels, or the plain version on the same device."""
@@ -368,7 +401,8 @@ def ioc_train_outputs(params, cfg, args, kernel):
               for x in tree_leaves(trees)]
     trees = tree_unflatten(trees, leaves)
     names = ["traj", "dec_h", "feat_map"] + tree_paths(trees)
-    kw = dict(num_refine=max(cfg.num_refine, 1), delta_scale=_DELTA_SCALE)
+    kw = dict(num_refine=max(cfg.num_refine, 1), delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze)
     if kernel:
         refined, scores, iters = ops.ioc_refine_train(
             trees["ioc"], trees["scf"], traj, dec_h, fmap, live, fut, **kw)
@@ -388,10 +422,11 @@ def ioc_test_loss(outs, wts):
             + (iters ** 2).sum() + torch.sin(refined).sum())
 
 
-def ioc_train_grads(params, cfg, args, wts, kernel):
+def ioc_train_grads(params, cfg, args, wts, kernel, social_freeze=False):
     """Gradients of :func:`ioc_test_loss` for every input and parameter
     leaf of :func:`ioc_train_outputs`."""
-    outs, leaves = ioc_train_outputs(params, cfg, args, kernel)
+    outs, leaves = ioc_train_outputs(params, cfg, args, kernel,
+                                     social_freeze)
     grads = torch.autograd.grad(ioc_test_loss(outs, wts),
                                 list(leaves.values()))
     return outs, dict(zip(leaves, grads))
@@ -500,97 +535,35 @@ def train_noise(cfg, rng, device):
 
 @contextlib.contextmanager
 def plain_train_ops():
-    """Route the training kernel call sites to the plain versions (for
-    timing the plain training step on the same card)."""
+    """Route the training kernel call sites (the trainable IOC, the NLL,
+    the scene pool) to the plain versions, under autograd (for timing the
+    plain training step on the same card)."""
     from desire_tpu_torch import ops
-    from desire_tpu_torch.ops import ioc_fused, nll
-    saved = ops.ioc_refine_train, ops.bivariate_nll_sum
+    from desire_tpu_torch.ops import ioc_fused, nll, scene_pool
+    saved = ops.ioc_refine_train, ops.bivariate_nll_sum, ops.bilinear_pool
 
-    def ioc_plain(*a, social_freeze=False, **kw):
+    def ioc_plain(*a, **kw):
         refined, scores, iters = ioc_fused.ioc_refine_plain(
             *a, collect_iters=True, **kw)
         return refined, scores.to(a[3].dtype), iters
     ops.ioc_refine_train = ioc_plain
     ops.bivariate_nll_sum = nll.bivariate_nll_plain
+    ops.bilinear_pool = scene_pool.bilinear_pool_plain
     try:
         yield
     finally:
-        ops.ioc_refine_train, ops.bivariate_nll_sum = saved
+        (ops.ioc_refine_train, ops.bivariate_nll_sum,
+         ops.bilinear_pool) = saved
 
 
-def training_phase(dev, smi, rng):
-    """Phase 6. Returns the per-kernel results of the four training
-    kernels."""
+def check_step_card_vs_cpu(scfg, sp, rng):
+    """One float32 make_train_step step from the params sp: the kernels on
+    the card against the plain versions on the CPU, on the same batch and
+    noise. Returns the card's launches in the step."""
     from desire_tpu_torch import ops
-    from desire_tpu_torch.models.ioc import _DELTA_SCALE
-    from desire_tpu_torch.ops import ioc_bwd, ioc_fused, nll
     from desire_tpu_torch.params import to_device
-    from desire_tpu_torch.models.desire import desire_loss
-    from desire_tpu_torch.train.state import (create_train_state,
-                                              tree_leaves, tree_unflatten)
-    from desire_tpu_torch.train.trainer import make_train_step, run_epoch
-
-    # -- 6a. float32, small shape -------------------------------------------
-    print("training kernels, float32, small shape:", flush=True)
-    scfg = small_cfg()
-    sp = make_params(scfg, dev)
-    args = ioc_train_args(scfg, 2, rng, dev)
-    wts = torch.as_tensor(rng.standard_normal(
-        (2, scfg.max_num_obj, scfg.num_samples)).astype(np.float32),
-        device=dev)
-    out_k, g_k = ioc_train_grads(sp, scfg, args, wts, kernel=True)
-    out_p, g_p = ioc_train_grads(sp, scfg, args, wts, kernel=False)
-    for name, a_, b_ in zip(("refined", "scores", "iters"), out_k, out_p):
-        check_close(f"ioc train {name}", a_.detach(), b_.detach(),
-                    **(F32_SCORE_TOL if name == "scores" else F32_TOL))
-    for name in g_p:
-        check_close(f"d {name}", g_k[name], g_p[name], **F32_GRAD_TOL)
-    check_nll(9, scfg.num_samples, scfg.pred_len, rng, dev)
-
-    # -- 6b. bfloat16, flagship shape -----------------------------------------
-    print("training kernels, bfloat16, flagship shape:", flush=True)
-    cfg = flagship_cfg()
-    params = make_params(cfg, dev)
-    b = cfg.batch_size
-    args = ioc_train_args(cfg, b, rng, dev)
-    wts = torch.as_tensor(rng.standard_normal(
-        (b, cfg.max_num_obj, cfg.num_samples)).astype(np.float32),
-        device=dev)
-    out_k, g_k = ioc_train_grads(params, cfg, args, wts, kernel=True)
-    out_p, g_p = ioc_train_grads(params, cfg, args, wts, kernel=False)
-    fwd_err = max(check_bf16("refined", out_k[0].detach(), out_p[0].detach()),
-                  check_bf16("refined", out_k[2].detach(), out_p[2].detach()),
-                  check_bf16("scores", out_k[1].detach(), out_p[1].detach()))
-    bwd_err = max(check_grads_bf16(name, g_k[name], g_p[name])
-                  for name in g_p)
-    del out_p, g_p
-    nll_f_err, nll_b_err, nll_args = check_nll(
-        b * cfg.max_num_obj, cfg.num_samples, cfg.pred_len, rng, dev)
-
-    # -- 6c. determinism ------------------------------------------------------
-    traj, dec_h, fmap, live, fut = (x.detach() for x in args)
-    kw = dict(num_refine=cfg.num_refine, delta_scale=_DELTA_SCALE)
-    w = ioc_fused.pack_ioc(params["ioc"], params["scf"], torch.bfloat16, dev,
-                           cfg.max_num_obj)
-    refined, scores, iters = ioc_fused.ioc_refine_cuda(
-        w, traj, dec_h, fmap, live, fut, collect_iters=True, **kw)
-    msg = ioc_bwd.social_messages(params["scf"], dec_h).contiguous()
-    cts = [torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32),
-                           device=dev) for x in (refined, scores, iters)]
-    bwd_args = (params["ioc"], params["scf"], traj, dec_h, msg, fmap, live,
-                fut, iters, *cts)
-    first = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args, **kw)
-    second = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args, **kw)
-    flat = lambda o: [x for x in o[:4]] + [o[4][n] for n in sorted(o[4])] + [
-        o[5][h][n] for h in sorted(o[5]) for n in ("w", "b")] + [o[6]]
-    same = all(torch.equal(x, y) for x, y in zip(flat(first), flat(second)))
-    print(f"  ioc backward run twice: bitwise equal = {same}", flush=True)
-    if not same:
-        raise AssertionError("the IOC backward kernel is not deterministic")
-
-    # -- 6d. one float32 step: card vs CPU ------------------------------------
-    print("one float32 training step, card (kernels) vs CPU (plain):",
-          flush=True)
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    from desire_tpu_torch.train.trainer import make_train_step
     sp_cpu = to_device(sp, "cpu")
     batch = synthetic_batch(scfg, rng)
     noise = train_noise(scfg, rng, "cpu")
@@ -599,9 +572,11 @@ def training_phase(dev, smi, rng):
         step_fn = make_train_step(scfg, steps_per_epoch=190)
         st = create_train_state(scfg, to_device(sp_cpu, where), seed=0)
         T = lambda x: torch.as_tensor(x, device=where)
+        ops.reset_launch_counts()
         st, met = step_fn(st, *map(T, batch),
                           noise={k: T(v) for k, v in noise.items()})
         after[where] = (tree_leaves(st.params), met)
+    launches = dict(ops.LAUNCHES)
     lr = scfg.learning_rate
     worst, moved, total_n = 0.0, 0, 0
     for a_, b_ in zip(*(after[w][0] for w in ("cuda", "cpu"))):
@@ -616,87 +591,197 @@ def training_phase(dev, smi, rng):
     ok = worst <= STEP_MAX_ABS(lr) and share <= STEP_FLIP_SHARE
     print(f"  params after the step: max_abs_err={worst:.3e} (<= "
           f"{STEP_MAX_ABS(lr):.3e}), share off by > 1e-4: {share:.2e} "
-          f"(<= {STEP_FLIP_SHARE}) {'ok' if ok else 'FAIL'}", flush=True)
+          f"(<= {STEP_FLIP_SHARE}) {'ok' if ok else 'FAIL'}; card launches "
+          f"{launches}", flush=True)
     check_close("step loss", after["cuda"][1]["loss"].cpu(),
                 after["cpu"][1]["loss"], rtol=1e-4, atol=1e-5)
     if not ok:
         raise AssertionError("the float32 step on the card disagrees with "
                              "the plain step on the CPU")
+    return launches
 
-    # -- 6e. five run_epoch steps at the flagship training shape -------------
-    print("training: five run_epoch steps at B=64, A=60, K=20, bf16",
-          flush=True)
-    loader = SyntheticLoader(cfg, rng, 5)
+
+def epoch_run(cfg, params, loader, label):
+    """run_epoch over all of loader's batches from a fresh state (seed 0),
+    every step logged. Checks finite losses and gradient norms and moved
+    params. Returns (logged metrics, launches, peak device bytes)."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    from desire_tpu_torch.train.trainer import make_train_step, run_epoch
+    n = len(loader.batches)
     step_fn = make_train_step(cfg, steps_per_epoch=190)
     state = create_train_state(cfg, params, seed=0)
     before = [x.clone() for x in tree_leaves(state.params)]
     logged = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     state, mean_loss = run_epoch(state, loader, 0, step_fn,
                                  log_fn=lambda m, st: logged.append(m),
                                  log_every=1)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     moved = sum(int((x != y).sum()) for x, y in
                 zip(tree_leaves(state.params), before))
-    print(f"  steps {state.step}; mean loss {mean_loss:.4f}; grad_norm "
+    print(f"  {label}: steps {state.step}; mean loss {mean_loss:.6f}; losses "
+          f"{[m['loss'] for m in logged]}; grad_norm "
           f"{[round(m['grad_norm'], 4) for m in logged]}; params changed "
-          f"{moved}; launches {launches}", flush=True)
-    if state.step != 5 or len(logged) != 5 or not np.isfinite(mean_loss):
-        raise AssertionError("five finite training steps expected")
+          f"{moved}; launches {launches}; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    if state.step != n or len(logged) != n or not np.isfinite(mean_loss):
+        raise AssertionError(f"{label}: {n} finite training steps expected")
     if not all(np.isfinite(m["grad_norm"]) for m in logged) or moved == 0:
-        raise AssertionError("non-finite gradients or unmoved params")
-    for name in ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
-                 "nll_bwd"):
-        if launches[name] < 5:
-            raise AssertionError(f"kernel {name} launched {launches[name]} "
-                                 f"times in 5 training steps")
+        raise AssertionError(f"{label}: non-finite gradients or unmoved "
+                             f"params")
+    return logged, launches, peak
+
+
+def check_launches(label, launches, names, least):
+    for name in names:
+        if launches[name] < least:
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{launches[name]} times (want >= {least})")
+
+
+def training_phase(dev, smi, rng):
+    """Phase 6. Returns the per-kernel results of the four training
+    kernels and of the IOC backward's social_freeze variant."""
+    from desire_tpu_torch.models.ioc import _DELTA_SCALE
+    from desire_tpu_torch.ops import ioc_bwd, ioc_fused, nll
+    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.train.trainer import make_train_step
+
+    # -- 6a. float32, small shape -------------------------------------------
+    print("training kernels, float32, small shape:", flush=True)
+    scfg = small_cfg()
+    sp = make_params(scfg, dev)
+    args = ioc_train_args(scfg, 2, rng, dev)
+    wts = torch.as_tensor(rng.standard_normal(
+        (2, scfg.max_num_obj, scfg.num_samples)).astype(np.float32),
+        device=dev)
+    for freeze in (False, True):
+        tag = " (social_freeze)" if freeze else ""
+        out_k, g_k = ioc_train_grads(sp, scfg, args, wts, kernel=True,
+                                     social_freeze=freeze)
+        out_p, g_p = ioc_train_grads(sp, scfg, args, wts, kernel=False,
+                                     social_freeze=freeze)
+        for name, a_, b_ in zip(("refined", "scores", "iters"), out_k, out_p):
+            check_close(f"ioc train {name}{tag}", a_.detach(), b_.detach(),
+                        **(F32_SCORE_TOL if name == "scores" else F32_TOL))
+        for name in g_p:
+            check_close(f"d {name}{tag}", g_k[name], g_p[name],
+                        **F32_GRAD_TOL)
+    check_nll(9, scfg.num_samples, scfg.pred_len, rng, dev)
+
+    # -- 6b. bfloat16, flagship shape -----------------------------------------
+    print("training kernels, bfloat16, flagship shape:", flush=True)
+    cfg = flagship_cfg()
+    params = make_params(cfg, dev)
+    b = cfg.batch_size
+    args = ioc_train_args(cfg, b, rng, dev)
+    wts = torch.as_tensor(rng.standard_normal(
+        (b, cfg.max_num_obj, cfg.num_samples)).astype(np.float32),
+        device=dev)
+    fwd_err, bwd_err = {}, {}
+    for freeze in (False, True):
+        if freeze:
+            print("  with social_freeze:", flush=True)
+        out_k, g_k = ioc_train_grads(params, cfg, args, wts, kernel=True,
+                                     social_freeze=freeze)
+        out_p, g_p = ioc_train_grads(params, cfg, args, wts, kernel=False,
+                                     social_freeze=freeze)
+        fwd_err[freeze] = max(
+            check_bf16("refined", out_k[0].detach(), out_p[0].detach()),
+            check_bf16("refined", out_k[2].detach(), out_p[2].detach()),
+            check_bf16("scores", out_k[1].detach(), out_p[1].detach()))
+        bwd_err[freeze] = max(check_grads_bf16(name, g_k[name], g_p[name])
+                              for name in g_p)
+        del out_k, g_k, out_p, g_p
+    nll_f_err, nll_b_err, nll_args = check_nll(
+        b * cfg.max_num_obj, cfg.num_samples, cfg.pred_len, rng, dev)
+
+    # -- 6c. determinism ------------------------------------------------------
+    traj, dec_h, fmap, live, fut = (x.detach() for x in args)
+    w = ioc_fused.pack_ioc(params["ioc"], params["scf"], torch.bfloat16, dev,
+                           cfg.max_num_obj)
+    msg = ioc_bwd.social_messages(params["scf"], dec_h).contiguous()
+    bwd_args, kws = {}, {}
+    for freeze in (False, True):
+        kw = dict(num_refine=cfg.num_refine, delta_scale=_DELTA_SCALE,
+                  social_freeze=freeze)
+        refined, scores, iters = ioc_fused.ioc_refine_cuda(
+            w, traj, dec_h, fmap, live, fut, collect_iters=True, **kw)
+        cts = [torch.as_tensor(rng.standard_normal(x.shape).astype(
+            np.float32), device=dev) for x in (refined, scores, iters)]
+        bwd_args[freeze] = (params["ioc"], params["scf"], traj, dec_h, msg,
+                            fmap, live, fut, iters, *cts)
+        kws[freeze] = kw
+        first = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args[freeze], **kw)
+        second = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args[freeze], **kw)
+        flat = lambda o: [x for x in o[:4]] + [o[4][n] for n in sorted(o[4])] \
+            + [o[5][h][n] for h in sorted(o[5]) for n in ("w", "b")] + [o[6]]
+        same = all(torch.equal(x, y)
+                   for x, y in zip(flat(first), flat(second)))
+        print(f"  ioc backward (social_freeze={freeze}) run twice: bitwise "
+              f"equal = {same}", flush=True)
+        if not same:
+            raise AssertionError("the IOC backward kernel is not "
+                                 "deterministic")
+        del first, second
+
+    # -- 6d. one float32 step: card vs CPU ------------------------------------
+    print("one float32 training step, card (kernels) vs CPU (plain):",
+          flush=True)
+    check_step_card_vs_cpu(scfg, sp, rng)
+
+    # -- 6e. run_epoch at the flagship training shape -----------------------
+    print("training: run_epoch at B=64, A=60, K=20, bf16", flush=True)
+    train_names = ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
+                   "nll_bwd")
+    _, launches, _ = epoch_run(cfg, params, SyntheticLoader(cfg, rng, 5),
+                               "5 steps")
+    check_launches("5 training steps", launches, train_names, 5)
+    cfg_fz = flagship_cfg(social_freeze=True)
+    _, launches_fz, _ = epoch_run(cfg_fz, params,
+                                  SyntheticLoader(cfg, rng, 3),
+                                  "3 steps, social_freeze")
+    check_launches("3 social_freeze training steps", launches_fz,
+                   train_names, 3)
 
     # -- 6f. timing -----------------------------------------------------------
     print(f"training timing on {smi} (CUDA events, median):", flush=True)
     xy, mask, ids = (torch.as_tensor(x, device=dev)
                      for x in synthetic_batch(cfg, rng))
-    st0 = create_train_state(cfg, params, seed=0)
-    step_ms, step_plain_ms = [], []
-    for _ in range(2):       # in turns: kernels, plain, kernels, plain
-        step_ms.append(time_ms(lambda: step_fn(st0, xy, mask, ids),
-                               repeats=3, iters=2))
-        with plain_train_ops():
-            step_plain_ms.append(time_ms(lambda: step_fn(st0, xy, mask, ids),
-                                         repeats=3, iters=2))
-    print(f"train_step_ms kernels {statistics.median(step_ms):.3f} "
-          f"(runs {step_ms})", flush=True)
-    print(f"train_step_ms plain {statistics.median(step_plain_ms):.3f} "
-          f"(runs {step_plain_ms})", flush=True)
-    # where the step's time goes: the loss forward, forward + backward
-    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    p_req = tree_unflatten(params, leaves)
-    gen = torch.Generator(device=dev)
-
-    def loss_fwd():
-        return desire_loss(p_req, cfg, xy, mask, ids, step=0,
-                           generator=gen)[0]
-    t_loss = time_ms(loss_fwd, repeats=3, iters=2)
-    t_loss_bwd = time_ms(lambda: torch.autograd.grad(loss_fwd(), leaves),
-                         repeats=3, iters=2)
-    print(f"train_step split ms: loss forward {t_loss:.3f}, backward "
-          f"{t_loss_bwd - t_loss:.3f}, optimizer and the rest "
-          f"{statistics.median(step_ms) - t_loss_bwd:.3f}", flush=True)
-    del leaves, p_req
+    step_ms = {}
+    for name, c in (("train_step_ms", cfg),
+                    ("train_step_ms social_freeze", cfg_fz)):
+        st0 = create_train_state(c, params, seed=0)
+        step_fn = make_train_step(c, steps_per_epoch=190)
+        step_ms[name] = time_in_turns(
+            lambda: step_fn(st0, xy, mask, ids), plain_train_ops, name,
+            repeats=3, iters=2)
+    step_split("train_step", cfg, params, (xy, mask, ids),
+               step_ms["train_step_ms"][0])
+    kw = kws[False]
     t_fwd = time_ms(lambda: ioc_fused.ioc_refine_cuda(
         w, traj, dec_h, fmap, live, fut, collect_iters=True, **kw))
     t_fwd_p = time_ms(lambda: ioc_fused.ioc_refine_plain(
         params["ioc"], params["scf"], traj, dec_h, fmap, live, fut,
         collect_iters=True, **kw))
-    t_bwd = time_ms(lambda: ioc_bwd.ioc_refine_bwd_cuda(*bwd_args, **kw),
-                    repeats=3, iters=2)
-    # the plain backward: autograd through the plain version, on a graph
-    # recorded once
-    outs, leaves = ioc_train_outputs(params, cfg, args, kernel=False)
-    loss = ioc_test_loss(outs, wts)
-    t_bwd_p = time_ms(lambda: torch.autograd.grad(
-        loss, list(leaves.values()), retain_graph=True), repeats=3, iters=1)
-    del outs, leaves, loss
+    t_bwd, t_bwd_p = {}, {}
+    for freeze in (False, True):
+        t_bwd[freeze] = time_ms(lambda: ioc_bwd.ioc_refine_bwd_cuda(
+            *bwd_args[freeze], **kws[freeze]), repeats=3, iters=2)
+        # the plain backward: autograd through the plain version, on a
+        # graph recorded once
+        outs, leaves = ioc_train_outputs(params, cfg, args, kernel=False,
+                                         social_freeze=freeze)
+        loss = ioc_test_loss(outs, wts)
+        t_bwd_p[freeze] = time_ms(lambda: torch.autograd.grad(
+            loss, list(leaves.values()), retain_graph=True), repeats=3,
+            iters=1)
+        del outs, leaves, loss
     raw5, target, mask_n, g = nll_args
     t_nf = time_ms(lambda: nll.nll_fwd_cuda(raw5, target, mask_n))
     t_nf_p = time_ms(lambda: nll.bivariate_nll_plain(raw5, target, mask_n))
@@ -706,37 +791,373 @@ def training_phase(dev, smi, rng):
     t_nb_p = time_ms(lambda: torch.autograd.grad(nll_graph, [r], g,
                                                  retain_graph=True))
     for name, t_k, t_p in (("ioc_refine_train", t_fwd, t_fwd_p),
-                           ("ioc_refine_bwd", t_bwd, t_bwd_p),
+                           ("ioc_refine_bwd", t_bwd[False], t_bwd_p[False]),
+                           ("ioc_refine_bwd_social_freeze", t_bwd[True],
+                            t_bwd_p[True]),
                            ("nll_fwd", t_nf, t_nf_p),
                            ("nll_bwd", t_nb, t_nb_p)):
         print(f"{name} ms kernel {t_k:.3f} plain {t_p:.3f}", flush=True)
 
     n_rows = b * cfg.max_num_obj
-    work = {"ioc_refine_train": (ioc_fwd_work(cfg, b, iters_out=True),
-                                 "bf16"),
-            "ioc_refine_bwd": (ioc_bwd_work(cfg, b), "bf16"),
-            "nll_fwd": (nll_work(n_rows, cfg.num_samples, cfg.pred_len),
-                        "f32"),
-            "nll_bwd": (nll_work(n_rows, cfg.num_samples, cfg.pred_len,
-                                 backward=True), "f32")}
     rows = []
-    for name, src, rep, err, t_k, t_p in (
+    for name, src, rep, err, t_k, t_p, work, runs in (
             ("ioc_refine_train", "ioc_refine.cu",
-             "desire_tpu/ops/ioc_fused.py:244", fwd_err, t_fwd, t_fwd_p),
+             "desire_tpu/ops/ioc_fused.py:244", fwd_err[False], t_fwd,
+             t_fwd_p, (ioc_fwd_work(cfg, b, iters_out=True), "bf16"),
+             launches),
             ("ioc_refine_bwd", "ioc_refine_bwd.cu",
-             "desire_tpu/ops/ioc_bwd.py:93", bwd_err, t_bwd, t_bwd_p),
+             "desire_tpu/ops/ioc_bwd.py:93", bwd_err[False], t_bwd[False],
+             t_bwd_p[False], (ioc_bwd_work(cfg, b), "bf16"), launches),
+            ("ioc_refine_bwd_social_freeze", "ioc_refine_bwd.cu",
+             "desire_tpu/ops/ioc_bwd.py:859", bwd_err[True], t_bwd[True],
+             t_bwd_p[True], (ioc_bwd_work(cfg, b, social_freeze=True),
+                             "bf16"), launches_fz),
             ("nll_fwd", "nll.cu", "desire_tpu/ops/nll.py:83", nll_f_err,
-             t_nf, t_nf_p),
+             t_nf, t_nf_p, (nll_work(n_rows, cfg.num_samples, cfg.pred_len),
+                            "f32"), launches),
             ("nll_bwd", "nll.cu", "desire_tpu/ops/nll.py:91", nll_b_err,
-             t_nb, t_nb_p)):
-        (nbytes, flops), kind = work[name]
+             t_nb, t_nb_p, (nll_work(n_rows, cfg.num_samples, cfg.pred_len,
+                                     backward=True), "f32"), launches)):
+        (nbytes, flops), kind = work
         b_ms, b_by = bound(nbytes, flops, kind)
+        count = runs["ioc_refine_bwd" if name.startswith("ioc_refine_bwd")
+                     else name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"desire_tpu_torch/csrc/{src}",
-                     "replaces": rep, "launches": launches[name],
+                     "replaces": rep, "launches": count,
                      "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return rows
+
+
+def step_split(name, cfg, params, batch, step_ms):
+    """Where a training step's time goes: the loss forward, its backward
+    (forward + backward less forward) and the optimizer with the rest (the
+    step less both), CUDA events."""
+    from desire_tpu_torch.models.desire import desire_loss
+    from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    p_req = tree_unflatten(params, leaves)
+    gen = torch.Generator(device=leaves[0].device)
+
+    def loss_fwd():
+        return desire_loss(p_req, cfg, *batch, step=0, generator=gen)[0]
+    t_loss = time_ms(loss_fwd, repeats=3, iters=2)
+    t_loss_bwd = time_ms(lambda: torch.autograd.grad(loss_fwd(), leaves),
+                         repeats=3, iters=2)
+    print(f"{name} split ms: loss forward {t_loss:.3f}, backward "
+          f"{t_loss_bwd - t_loss:.3f}, optimizer and the rest "
+          f"{step_ms - t_loss_bwd:.3f}", flush=True)
+
+
+def time_in_turns(fn, plain_ctx, name, repeats=5, iters=3):
+    """fn through the kernels and under plain_ctx (the plain versions), in
+    turns: kernels, plain, kernels, plain. Prints both; returns the medians
+    (kernels, plain)."""
+    got, plain = [], []
+    for _ in range(2):
+        got.append(time_ms(fn, repeats=repeats, iters=iters))
+        with plain_ctx():
+            plain.append(time_ms(fn, repeats=repeats, iters=iters))
+    k, p = statistics.median(got), statistics.median(plain)
+    print(f"{name} kernels {k:.3f} (runs {got})", flush=True)
+    print(f"{name} plain {p:.3f} (runs {plain})", flush=True)
+    return k, p
+
+
+def flagship_windows(cfg, rng, device):
+    """A timing batch: (B, To+Tf, A, 2) positions, an all-ones mask, ids."""
+    bx = torch.as_tensor(
+        rng.uniform(0.2, 0.8, (cfg.batch_size, cfg.total_len,
+                               cfg.max_num_obj, 2)).astype(np.float32),
+        device=device)
+    bm = torch.ones(bx.shape[:3], device=device)
+    bids = torch.arange(1, cfg.max_num_obj + 1, device=device).repeat(
+        cfg.batch_size, 1)
+    return bx, bm, bids
+
+
+# -- the scene pool -------------------------------------------------------------
+# float32: the kernels and the plain versions take the same products and sum
+# them in another order: the forward 4 terms; d_map every point at a node
+# (hundreds at the flagship); d_pos C terms of up to ~(G - 1) * 4 each,
+# whose float32 rounding reaches ~1e-4 where they cancel.
+POOL_TOL = dict(rtol=1e-5, atol=1e-5)
+POOL_DMAP_TOL = dict(rtol=1e-4, atol=1e-4)
+POOL_DPOS_TOL = dict(rtol=1e-4, atol=1e-3)
+# bfloat16 results (the forward and d_map): a float32 sum taken in another
+# order can round to the neighbouring bf16 value, 2^-7 relative at most.
+POOL_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+
+
+def scene_pool_inputs(b, g, c, p, cd, rng, device):
+    """Map, positions and a cotangent: a quarter of the positions exactly
+    on grid nodes, a quarter outside [0, 1], the last six on the borders
+    and corners, the rest uniform in [0, 1]."""
+    pos = rng.uniform(0.0, 1.0, (b, p, 2))
+    q = p // 4
+    pos[:, :q] = rng.integers(0, g, (b, q, 2)) / (g - 1)
+    pos[:, q:2 * q] = rng.uniform(-0.5, 1.5, (b, q, 2))
+    pos[:, -6:] = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.3],
+                   [0.7, 0.0], [1.0, 0.0]]
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=device).to(dt)
+    return (f(rng.standard_normal((b, g, g, c)), cd), f(pos),
+            f(rng.standard_normal((b, p, c)), cd))
+
+
+def check_scene_pool(b, g, c, p, cd, rng, device):
+    """The scene-pool kernels against their plain versions on the card, and
+    the gradient kernels bitwise equal in two runs. Returns the max abs
+    errors (forward, backward) and the inputs."""
+    from desire_tpu_torch.ops import scene_pool
+    fm, pos, gct = scene_pool_inputs(b, g, c, p, cd, rng, device)
+    bf = cd == torch.bfloat16
+    tag = f"scene pool (B, G, C, P) = {(b, g, c, p)} {cd}"
+    got = scene_pool.scene_pool_fwd_cuda(fm, pos)
+    ref = scene_pool.bilinear_pool_plain(fm, pos)
+    e_f = check_close(f"{tag} forward", got, ref,
+                      **(POOL_BF16_TOL if bf else POOL_TOL))
+    d_map, d_pos = scene_pool.scene_pool_bwd_cuda(fm, pos, gct)
+    r_map, r_pos = scene_pool.bilinear_pool_plain_bwd(fm, pos, gct)
+    e_m = check_close(f"{tag} d_map", d_map, r_map,
+                      **(POOL_BF16_TOL if bf else POOL_DMAP_TOL))
+    e_p = check_close(f"{tag} d_pos", d_pos, r_pos, **POOL_DPOS_TOL)
+    outside = (pos < 0) | (pos > 1)
+    if float(d_pos[outside].abs().max()) != 0.0:
+        raise AssertionError(f"{tag}: d_pos not zero outside [0, 1]")
+    again = scene_pool.scene_pool_bwd_cuda(fm, pos, gct)
+    same = torch.equal(again[0], d_map) and torch.equal(again[1], d_pos)
+    print(f"  {tag} backward run twice: bitwise equal = {same}", flush=True)
+    if not same:
+        raise AssertionError("the scene-pool gradient kernels are not "
+                             "deterministic")
+    return e_f, max(e_m, e_p), (fm, pos, gct)
+
+
+def unfused_phase(dev, smi, rng, params):
+    """Phase 7: the layer-by-layer IOC path (use_social=False when serving
+    and training, fused_train=False when training) through the scene-pool
+    kernels. params: the flagship params. Returns the scene-pool kernels'
+    results."""
+    import torch.nn.functional as F
+    from desire_tpu_torch.models.desire import (desire_forward,
+                                                pack_kernel_weights)
+    from desire_tpu_torch.ops import scene_pool
+    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.train.trainer import make_train_step
+
+    # -- 7a. float32, small shapes ------------------------------------------
+    print("scene-pool kernels, float32, small shapes:", flush=True)
+    for b, g, c, p in ((2, 8, 8, 700), (2, 8, 32, 700), (3, 32, 32, 1000)):
+        check_scene_pool(b, g, c, p, torch.float32, rng, dev)
+    scfg = small_cfg(use_social=False)
+    sp = make_params(scfg, dev)
+    r_s = max(scfg.num_refine, 1) + 1            # pooling calls per forward
+    print("compare float32 forward with use_social=False, card (kernels) vs "
+          "CPU (plain):", flush=True)
+    launches = check_forward_card_vs_cpu(scfg, sp, rng)
+    check_launches("use_social=False forward", launches,
+                   ("sgm_sample", "scene_pool_fwd"), 1)
+    if launches["scene_pool_fwd"] != r_s:
+        raise AssertionError(f"scene_pool_fwd launched "
+                             f"{launches['scene_pool_fwd']} times, want {r_s}")
+    print("one float32 training step with fused_train=False, card (kernels) "
+          "vs CPU (plain):", flush=True)
+    launches = check_step_card_vs_cpu(small_cfg(fused_train=False), sp, rng)
+    check_launches("fused_train=False step", launches,
+                   ("scene_pool_fwd", "scene_pool_bwd"), r_s)
+
+    # -- 7b. bfloat16, flagship shape -----------------------------------------
+    cfg = flagship_cfg()
+    b, a, k, t = cfg.batch_size, cfg.max_num_obj, cfg.num_samples, cfg.pred_len
+    g, c, p = cfg.scene_grid, cfg.scene_channels, a * k * t
+    print("scene-pool kernels, bfloat16, flagship shape:", flush=True)
+    pf_err, pb_err, pool_args = check_scene_pool(b, g, c, p, torch.bfloat16,
+                                                 rng, dev)
+    r_f = max(cfg.num_refine, 1) + 1
+
+    # -- 7c. serving with use_social=False --------------------------------------
+    print("serve: Predictor at B=64, A=60, K=20, bf16, use_social=False",
+          flush=True)
+    cfg_ns = flagship_cfg(use_social=False)
+    launches = serve_requests(params, cfg_ns, rng)
+    check_launches("3 requests, use_social=False", launches, ("sgm_sample",),
+                   3)
+    check_launches("3 requests, use_social=False", launches,
+                   ("scene_pool_fwd",), 3 * r_f)
+
+    # -- 7d. training through the layer-by-layer IOC ---------------------------
+    print("training: 3 run_epoch steps at B=64, A=60, K=20, bf16, "
+          "layer-by-layer IOC", flush=True)
+    cfg_u = flagship_cfg(fused_train=False)
+    cfg_ur = flagship_cfg(fused_train=False, remat=True)
+    loader = SyntheticLoader(cfg, rng, 3)
+    runs = {}
+    for label, c_ in (("fused_train=False", cfg_u),
+                      ("fused_train=False, remat=True", cfg_ur),
+                      ("use_social=False", cfg_ns)):
+        runs[label] = epoch_run(c_, params, loader, label)
+        check_launches(label, runs[label][1],
+                       ("scene_pool_fwd", "scene_pool_bwd"), 3 * r_f)
+        check_launches(label, runs[label][1], ("nll_fwd", "nll_bwd"), 3)
+    plain_l = [m["loss"] for m in runs["fused_train=False"][0]]
+    remat_l = [m["loss"] for m in runs["fused_train=False, remat=True"][0]]
+    # the same batches, noise and arithmetic; only float32 sums whose order
+    # is not fixed on the card (the occupancy splat's index_add_, cuDNN's
+    # weight gradients) may differ, and through Adam's first steps
+    diff = max(abs(x - y) / max(abs(x), 1e-6) for x, y in zip(plain_l,
+                                                               remat_l))
+    peak_off, peak_on = (runs["fused_train=False"][2],
+                         runs["fused_train=False, remat=True"][2])
+    print(f"  remat: losses off {plain_l} on {remat_l}, max relative "
+          f"difference {diff:.3e} (<= 1e-3); peak device memory off "
+          f"{peak_off / 2**30:.3f} GiB, on {peak_on / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    if diff > 1e-3:
+        raise AssertionError("remat changed the training losses")
+    launches = runs["fused_train=False"][1]
+
+    # -- 7e. timing -----------------------------------------------------------
+    print(f"layer-by-layer timing on {smi} (CUDA events, median):",
+          flush=True)
+    # the check's inputs put a quarter of the points on the border rows
+    # (clamped), the gradient's worst case; the path's positions lie inside
+    fm, pos, gct = pool_args
+    t_b_edge = time_ms(lambda: scene_pool.scene_pool_bwd_cuda(fm, pos, gct))
+    pos = torch.as_tensor(rng.uniform(0.15, 0.85, (b, p, 2)).astype(
+        np.float32), device=dev)
+    t_f = time_ms(lambda: scene_pool.scene_pool_fwd_cuda(fm, pos))
+    t_f_p = time_ms(lambda: scene_pool.bilinear_pool_plain(fm, pos))
+    t_b = time_ms(lambda: scene_pool.scene_pool_bwd_cuda(fm, pos, gct))
+    t_b_p = time_ms(lambda: scene_pool.bilinear_pool_plain_bwd(fm, pos,
+                                                               gct))
+    # the library yardstick: grid_sample on the map in NCHW and the grid of
+    # the clamped positions in [-1, 1] (in the map's dtype, as grid_sample
+    # takes it), border padding, align_corners; its backward as one call
+    fm_nchw = fm.permute(0, 3, 1, 2).contiguous()
+    grid = (2.0 * torch.clamp(pos, 0.0, 1.0) - 1.0).to(fm.dtype).reshape(
+        b, 1, p, 2)
+    g_nchw = gct.permute(0, 2, 1).reshape(b, c, 1, p).contiguous()
+    t_f_lib = time_ms(lambda: F.grid_sample(
+        fm_nchw, grid, mode="bilinear", padding_mode="border",
+        align_corners=True))
+    t_b_lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, fm_nchw, grid, 0, 1, True, [True, True]))
+    print(f"scene pool timing at (B, P, G, C) = {(b, p, g, c)}, positions "
+          f"uniform in [0.15, 0.85]:", flush=True)
+    print(f"scene_pool_fwd ms kernel {t_f:.4f} plain {t_f_p:.4f} grid_sample "
+          f"{t_f_lib:.4f}", flush=True)
+    print(f"scene_pool_bwd ms kernel {t_b:.4f} plain {t_b_p:.4f} "
+          f"grid_sample backward {t_b_lib:.4f}; kernel on the check's "
+          f"inputs (a quarter on the borders) {t_b_edge:.4f}", flush=True)
+    bx, bm, bids = flagship_windows(cfg, rng, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    packed_ns = pack_kernel_weights(params, cfg_ns, dev)
+    time_in_turns(lambda: desire_forward(params, cfg_ns, bx, bm, bids,
+                                         generator=gen,
+                                         kernel_weights=packed_ns),
+                  plain_ops, "forward_ms use_social=False")
+    batch = tuple(torch.as_tensor(x, device=dev)
+                  for x in synthetic_batch(cfg, rng))
+    for name, c_ in (("train_step_ms fused_train=False", cfg_u),
+                     ("train_step_ms fused_train=False remat=True", cfg_ur),
+                     ("train_step_ms use_social=False", cfg_ns)):
+        st0 = create_train_state(c_, params, seed=0)
+        step_fn = make_train_step(c_, steps_per_epoch=190)
+        t_k, _ = time_in_turns(lambda: step_fn(st0, *batch), plain_train_ops,
+                               name, repeats=3, iters=2)
+        if c_ is cfg_u:
+            step_split("train_step fused_train=False", c_, params, batch,
+                       t_k)
+
+    cs = 2 if cfg.compute_dtype == "bfloat16" else 4
+    rows = []
+    for name, rep, err, t_k, t_p, t_l, bwd in (
+            ("scene_pool_fwd", "desire_tpu/ops/scene_pool.py:75", pf_err,
+             t_f, t_f_p, t_f_lib, False),
+            ("scene_pool_bwd", "desire_tpu/ops/scene_pool.py:85", pb_err,
+             t_b, t_b_p, t_b_lib, True)):
+        b_ms, b_by = bound(*scene_pool_work(b, p, g, c, cs, backward=bwd),
+                           "f32")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "desire_tpu_torch/csrc/scene_pool.cu",
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l})
+    return rows
+
+
+def check_forward_card_vs_cpu(scfg, sp, rng):
+    """desire_forward(train=False) through the kernels on the card against
+    the plain versions on the CPU (float32, the same params, inputs and
+    latent noise). Returns the card forward's launches."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.models.desire import desire_forward
+    from desire_tpu_torch.params import to_device
+    b, a, t = scfg.batch_size, scfg.max_num_obj, scfg.total_len
+    xy = rng.uniform(0.25, 0.75, (b, t, a, 2)).astype(np.float32)
+    mask = np.ones((b, t, a), np.float32)
+    mask[:, :, -1] = 0.0
+    mask[0, 0, 0] = 0.0
+    ids = np.tile(np.arange(1, a + 1), (b, 1)).astype(np.int64)
+    ids[:, -1] = 0
+    eps = rng.standard_normal((b * a, scfg.num_samples,
+                               scfg.latent_size)).astype(np.float32)
+    outs = {}
+    for where in ("cpu", "cuda"):
+        p = to_device(sp, where)
+        T = lambda x: torch.as_tensor(x, device=where)
+        ops.reset_launch_counts()
+        outs[where] = desire_forward(p, scfg, T(xy), T(mask), T(ids),
+                                     eps=T(eps))
+    launches = dict(ops.LAUNCHES)
+    for key, tol in (("sgm_traj", F32_TOL), ("refined_traj", F32_TOL),
+                     ("scores", F32_SCORE_TOL)):
+        check_close(f"forward {key}", outs["cuda"][key].cpu(),
+                    outs["cpu"][key], **tol)
+    print(f"  card launches {launches}", flush=True)
+    return launches
+
+
+def serve_requests(params, cfg, rng, n_req=3, n_win=64):
+    """n_req requests of n_win synthetic windows through serve.Predictor;
+    checks every forecast's shape, finiteness and distance from its agent.
+    Returns the launches of the requests."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.serve import Predictor
+    pred = Predictor(params, cfg, max_windows=n_win, device="cuda", seed=0)
+    pred.warmup()
+    ops.reset_launch_counts()
+    for _ in range(n_req):
+        wins = synthetic_windows(cfg, rng, n_win)
+        res = pred.predict_windows(wins, scales=1000.0)
+        if len(res) != n_win:
+            raise AssertionError(f"{len(res)} forecasts for {n_win} windows")
+        for (oxy, _, wids), r in zip(wins, res):
+            na = min(len(wids), cfg.max_num_obj)
+            want = {"traj": (na, cfg.num_samples, cfg.pred_len, 2),
+                    "scores": (na, cfg.num_samples),
+                    "best": (na, cfg.pred_len, 2)}
+            for key, shape in want.items():
+                if r[key].shape != shape or not np.isfinite(r[key]).all():
+                    raise AssertionError(f"{key}: shape {r[key].shape} "
+                                         f"(want {shape}) or not finite")
+            live = r["live"]
+            if live.any():
+                # forecasts land near the agents, in input pixels: one step
+                # of the velocity envelope plus at most 0.1 units of
+                # refinement per pass
+                last = oxy[:na][live, -1]
+                dist = np.abs(r["best"][live, 0] - last).max()
+                if dist > 600.0:
+                    raise AssertionError(f"first forecast step {dist:.1f} px"
+                                         " from the last observation")
+    launches = dict(ops.LAUNCHES)
+    print(f"  {n_req} requests x {n_win} windows; launches {launches}; "
+          f"stats {pred.stats()}", flush=True)
+    return launches
 
 
 def main():
@@ -744,13 +1165,10 @@ def main():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from desire_tpu_torch import ops
     from desire_tpu_torch.models.desire import (desire_forward,
                                                 pack_kernel_weights)
     from desire_tpu_torch.models.ioc import _DELTA_SCALE
     from desire_tpu_torch.ops import _build, ioc_fused, sgm_fused
-    from desire_tpu_torch.params import to_device
-    from desire_tpu_torch.serve import Predictor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -767,8 +1185,8 @@ def main():
           flush=True)
     kernel = "?"
     for line in log.splitlines():      # ptxas -v: registers and spills
-        m = re.search(r"entry function .*?((?:sgm|ioc|nll)_[a-z_]+?_kernel)"
-                      r"(?:I(\w+?)E)?", line)
+        m = re.search(r"entry function .*?((?:sgm|ioc|nll|scene)_[a-z_]+?"
+                      r"_kernel)(?:I(\w+?)EEv)?", line)
         if m:
             kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         elif "registers" in line or "spill" in line:
@@ -805,25 +1223,7 @@ def main():
     # the whole forward: kernels on the card vs plain versions on the CPU
     print("compare float32 forward, card (kernels) vs CPU (plain):",
           flush=True)
-    b, a, t = scfg.batch_size, scfg.max_num_obj, scfg.total_len
-    xy = rng.uniform(0.25, 0.75, (b, t, a, 2)).astype(np.float32)
-    mask = np.ones((b, t, a), np.float32)
-    mask[:, :, -1] = 0.0
-    mask[0, 0, 0] = 0.0
-    ids = np.tile(np.arange(1, a + 1), (b, 1)).astype(np.int64)
-    ids[:, -1] = 0
-    eps = rng.standard_normal((b * a, scfg.num_samples,
-                               scfg.latent_size)).astype(np.float32)
-    outs = {}
-    for where in ("cpu", "cuda"):
-        p = to_device(sp, where)
-        T = lambda x: torch.as_tensor(x, device=where)
-        outs[where] = desire_forward(p, scfg, T(xy), T(mask), T(ids),
-                                     eps=T(eps))
-    for key, tol in (("sgm_traj", F32_TOL), ("refined_traj", F32_TOL),
-                     ("scores", F32_SCORE_TOL)):
-        check_close(f"forward {key}", outs["cuda"][key].cpu(),
-                    outs["cpu"][key], **tol)
+    check_forward_card_vs_cpu(scfg, sp, rng)
 
     # -- 3b. bfloat16, flagship shape -----------------------------------------
     print("compare bfloat16, flagship shape:", flush=True)
@@ -850,67 +1250,19 @@ def main():
 
     # -- 4. serve -------------------------------------------------------------
     print("serve: Predictor at B=64, A=60, K=20, bf16", flush=True)
-    pred = Predictor(params, cfg, max_windows=64, device="cuda", seed=0)
-    pred.warmup()
-    ops.reset_launch_counts()
-    n_req, n_win = 3, 64
-    for _ in range(n_req):
-        wins = synthetic_windows(cfg, rng, n_win)
-        res = pred.predict_windows(wins, scales=1000.0)
-        if len(res) != n_win:
-            raise AssertionError(f"{len(res)} forecasts for {n_win} windows")
-        for (oxy, _, wids), r in zip(wins, res):
-            na = min(len(wids), cfg.max_num_obj)
-            want = {"traj": (na, cfg.num_samples, cfg.pred_len, 2),
-                    "scores": (na, cfg.num_samples),
-                    "best": (na, cfg.pred_len, 2)}
-            for key, shape in want.items():
-                if r[key].shape != shape or not np.isfinite(r[key]).all():
-                    raise AssertionError(f"{key}: shape {r[key].shape} "
-                                         f"(want {shape}) or not finite")
-            live = r["live"]
-            if live.any():
-                # forecasts land near the agents, in input pixels: one step
-                # of the velocity envelope plus at most 0.1 units of
-                # refinement per pass
-                last = oxy[:na][live, -1]
-                dist = np.abs(r["best"][live, 0] - last).max()
-                if dist > 600.0:
-                    raise AssertionError(f"first forecast step {dist:.1f} px"
-                                         " from the last observation")
-    launches = dict(ops.LAUNCHES)
-    print(f"  {n_req} requests x {n_win} windows; launches {launches}; "
-          f"stats {pred.stats()}", flush=True)
-    for name in ("sgm_sample", "ioc_refine"):
-        if launches[name] < n_req:
-            raise AssertionError(f"kernel {name} launched {launches[name]} "
-                                 f"times for {n_req} requests")
+    launches = serve_requests(params, cfg, rng)
+    check_launches("3 requests", launches, ("sgm_sample", "ioc_refine"), 3)
 
     # -- 5. time --------------------------------------------------------------
     print(f"timing on {smi} (CUDA events, median):", flush=True)
-    bx = torch.as_tensor(
-        rng.uniform(0.2, 0.8, (cfg.batch_size, cfg.total_len,
-                               cfg.max_num_obj, 2)).astype(np.float32),
-        device=dev)
-    bm = torch.ones(bx.shape[:3], device=dev)
-    bids = torch.arange(1, cfg.max_num_obj + 1, device=dev).repeat(
-        cfg.batch_size, 1)
+    bx, bm, bids = flagship_windows(cfg, rng, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-
-    def fwd():
-        return desire_forward(params, cfg, bx, bm, bids, generator=gen,
-                              kernel_weights=packed)
-
-    fwd_ms, fwd_plain_ms = [], []
-    for _ in range(2):       # in turns: kernels, plain, kernels, plain
-        fwd_ms.append(time_ms(fwd))
-        with plain_ops():
-            fwd_plain_ms.append(time_ms(fwd))
-    fwd_k, fwd_p = statistics.median(fwd_ms), statistics.median(fwd_plain_ms)
+    fwd_k, _ = time_in_turns(
+        lambda: desire_forward(params, cfg, bx, bm, bids, generator=gen,
+                               kernel_weights=packed), plain_ops,
+        "forward_ms")
     traj_s = cfg.batch_size * cfg.max_num_obj * cfg.num_samples / fwd_k * 1e3
-    print(f"forward_ms kernels {fwd_k:.3f} (runs {fwd_ms})", flush=True)
-    print(f"forward_ms plain {fwd_p:.3f} (runs {fwd_plain_ms})", flush=True)
     print(f"sampled trajectories/s through the kernels: {traj_s:.0f}",
           flush=True)
     p_s = params["sgm"]
@@ -945,7 +1297,10 @@ def main():
     # -- 6. training -----------------------------------------------------------
     kernels += training_phase(dev, smi, rng)
 
-    # -- 7. results -------------------------------------------------------------
+    # -- 7. the layer-by-layer IOC path -----------------------------------------
+    kernels += unfused_phase(dev, smi, rng, params)
+
+    # -- 8. results -------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

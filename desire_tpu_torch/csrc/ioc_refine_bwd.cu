@@ -24,6 +24,16 @@
 //       positions)
 //   d_traj <- g
 //
+// Under social_freeze (the TPU kernel's frozen-attention variant,
+// ioc_bwd.py:859-944) every pass pools its social block at the initial
+// positions levels[0]: the block is pooled once, before the pass loop, and
+// each pass reads it. The passes then skip the attention and its adjoint
+// and collect the social-block cotangents in two buckets instead, one of
+// the refine passes and one of the re-score. One deferred attention
+// adjoint per step, after the loop, gives d_msg and d soc_logtau from both
+// buckets and the position gradient from the refine bucket only (the
+// re-score pools at stopped positions), added to d_traj.
+//
 // What bounds it on this card: the serial dependency chain, as in the
 // forward kernel: (R + 1) passes x 2 sweeps x T steps per block, each step
 // a handful of small products over the lane's A agents, separated by block
@@ -117,10 +127,12 @@ struct BwdLayout {
 // Float32 words of one block's device-memory workspace: input and hidden
 // gate preactivations gi, gh (T, A, 3d), hs (T, A, d), scene (T, A, C),
 // social (T, A, d), hidden seeds (T, A, d), scene cotangents (R + 1, T, A,
-// C).
+// C); under social_freeze also the two social-cotangent buckets (refine
+// passes, re-score), (T, A, d) each.
 __host__ __device__ inline size_t bwd_ws_words(int A, int T, int d, int C,
-                                               int R) {
-  return (size_t)T * A * (9 * d + C) + (size_t)(R + 1) * T * A * C;
+                                               int R, int freeze) {
+  return (size_t)T * A * (9 * d + C) + (size_t)(R + 1) * T * A * C
+         + (freeze ? (size_t)2 * T * A * d : 0);
 }
 
 // Block-wide product with a per-output epilogue:
@@ -196,8 +208,10 @@ __device__ __forceinline__ Corners corners(float px, float py, int G) {
 
 // kMma (bf16, d and C multiples of 16): the products whose second operand
 // is a weight matrix run on the tensor cores (block_mma, common.cuh), the
-// others, and all of them otherwise, as CUDA-core tiles (tile_mm).
-template <typename CD, bool kMma>
+// others, and all of them otherwise, as CUDA-core tiles (tile_mm). kFreeze:
+// social_freeze, a variant of its own so that the default one keeps its
+// registers.
+template <typename CD, bool kMma, bool kFreeze>
 __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
     const float* __restrict__ traj, const float* __restrict__ iters,
     const CD* __restrict__ dec_h, const CD* __restrict__ msg_g,
@@ -240,7 +254,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   const int mtiles = (A + 15) / 16;  // agent-row tiles of the mma products
   auto row = [&](int a) { return ((size_t)b * A + a) * K + k; };
 
-  float* ws = ws_g + (size_t)blk * bwd_ws_words(A, T, d, C, R);
+  float* ws = ws_g + (size_t)blk * bwd_ws_words(A, T, d, C, R, kFreeze);
   float* gi_ws = ws;                              // (T, A, 3d)
   float* gh_ws = gi_ws + (size_t)T * A * d3;      // (T, A, 3d)
   float* hs_ws = gh_ws + (size_t)T * A * d3;      // (T, A, d)
@@ -248,6 +262,9 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   float* so_ws = sc_ws + (size_t)T * A * C;       // (T, A, d)
   float* seed_ws = so_ws + (size_t)T * A * d;     // (T, A, d)
   float* dsc_ws = seed_ws + (size_t)T * A * d;    // (R + 1, T, A, C)
+  // social_freeze: d social of the refine passes and of the re-score
+  float* bkr_ws = dsc_ws + (size_t)(R + 1) * T * A * C;  // (T, A, d)
+  float* bkc_ws = bkr_ws + (size_t)T * A * d;            // (T, A, d)
 
   float* dwi = d_wi_p + (size_t)blk * F * d3;
   float* dwh = d_wh_p + (size_t)blk * d * d3;
@@ -269,6 +286,8 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
     d_dec[o] = 0.f;
     d_msg[o] = 0.f;
   }
+  if constexpr (kFreeze)
+    for (int i = tid; i < 2 * T * A * d; i += nth) bkr_ws[i] = 0.f;
   for (int i = tid; i < T * A; i += nth) {
     const int t = i / A, a = i % A;
     const size_t o = (row(a) * T + t) * 2;
@@ -336,6 +355,104 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   auto w_in = [&](const CD* w, int ld, int off) {
     return [=](int kk, int n) { return to_f(w[(size_t)kk * ld + off + n]); };
   };
+  // the social pool soc = att msg of the attention in att, per output
+  auto pool = [&](auto epi) {
+    tile_mm<4, 2>(
+        A, d, A, [&](int a, int j) { return rnd<CD>(att[a * A + j]); },
+        [&](int j, int c) { return msg[j * d + c]; }, epi);
+  };
+  // the pooling adjoint for the social cotangent ds (A, d), already rounded:
+  // d msg of step t += att^T ds, dl <- ds msg^T (the cotangent of att)
+  auto pool_adjoint = [&](int t, const float* ds, bool to_msg) {
+    if (to_msg)
+      tile_mm<4, 2>(
+          A, d, A, [&](int j, int a) { return rnd<CD>(att[a * A + j]); },
+          [&](int a, int c) { return ds[a * d + c]; },
+          [&](int j, int c, float acc) {
+            d_msg[(row(j) * T + t) * d + c] += acc;
+          });
+    tile_mm<4, 2>(
+        A, A, d, [&](int a, int c) { return ds[a * d + c]; },
+        [&](int c, int j) { return msg[j * d + c]; },
+        [&](int a, int j, float acc) { dl[a * A + j] = acc; });
+  };
+  // the softmax adjoint at positions (px, py), one warp per row: dl <- d
+  // logits, ltrow[a] <- the row's sum of d logits * d^2
+  auto softmax_adjoint = [&](const float* px, const float* py) {
+    for (int a = warp; a < A; a += nwarps) {
+      const float* w = att + a * A;
+      float* r = dl + a * A;
+      float dot = 0.f;
+      for (int j = lane; j < A; j += 32) dot += r[j] * nbok[a] * w[j];
+      dot = warp_sum(dot);
+      const float xa = px[a], ya = py[a];
+      const float sqa = xa * xa + ya * ya;
+      float lt = 0.f;
+      for (int j = lane; j < A; j += 32) {
+        float v = 0.f;
+        if (j != a && live[j] > 0.f) {
+          const float dsm = r[j] * nbok[a];
+          v = w[j] * dsm - w[j] * dot;
+          const float xj = px[j], yj = py[j];
+          const float d2 = (sqa + (xj * xj + yj * yj))
+                           - 2.f * (xa * xj + ya * yj);
+          lt += v * d2;
+        }
+        r[j] = v;
+      }
+      lt = warp_sum(lt);
+      if (lane == 0) ltrow[a] = lt;
+    }
+  };
+  auto add_ltau = [&]() {
+    if (tid == 0) {
+      float s = 0.f;
+      for (int a = 0; a < A; ++a) s += ltrow[a];
+      ltau_acc += s / (tau * tau) * expf(ltau);
+    }
+  };
+  // agent a's position cotangent through the distances of the softmax whose
+  // d logits are in dl; every lane of the calling warp gets it
+  auto social_dpos = [&](int a, const float* px, const float* py) {
+    const float xa = px[a], ya = py[a];
+    float rsum = 0.f, csum = 0.f, mx = 0.f, my = 0.f;
+    for (int j = lane; j < A; j += 32) {
+      const float dra = -dl[a * A + j] / tau;
+      const float dca = -dl[j * A + a] / tau;
+      rsum += dra;
+      csum += dca;
+      const float sym = rnd<CD>(dra + dca);
+      mx = fmaf(sym, rnd<CD>(px[j]), mx);
+      my = fmaf(sym, rnd<CD>(py[j]), my);
+    }
+    rsum = warp_sum(rsum);
+    csum = warp_sum(csum);
+    mx = warp_sum(mx);
+    my = warp_sum(my);
+    return make_float2(2.f * ((rsum + csum) * xa - mx),
+                       2.f * ((rsum + csum) * ya - my));
+  };
+
+  if constexpr (kFreeze) {
+    // the frozen social block: pooled once at the initial positions, read
+    // by every pass's forward and reverse sweeps
+    for (int i = tid; i < T * A; i += nth) {
+      const int t = i / A, a = i % A;
+      const size_t o = (row(a) * T + t) * 2;
+      xs[i] = traj[o];
+      ys[i] = traj[o + 1];
+    }
+    __syncthreads();
+    for (int t = 0; t < T; ++t) {
+      load_dec_msg(t);
+      attend(t);
+      __syncthreads();
+      pool([&](int a, int c, float acc) {
+        so_ws[((size_t)t * A + a) * d + c] = rnd<CD>(acc);
+      });
+      __syncthreads();
+    }
+  }
 
   for (int p = R; p >= 0; --p) {
     const bool score_pass = p == R;
@@ -369,16 +486,19 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         X[a * lx + rs_off + c] = rnd<CD>(acc);
         sc_ws[(size_t)t * A * C + i] = rnd<CD>(acc);
       }
-      attend(t);
+      if constexpr (kFreeze) {
+        for (int i = tid; i < A * d; i += nth)
+          X[(i / d) * lx + ro_off + i % d] = so_ws[(size_t)t * A * d + i];
+      } else {
+        attend(t);
+      }
       __syncthreads();
       // social pool soc = att msg; hidden gates h W_h (staged in R)
-      tile_mm<4, 2>(
-          A, d, A, [&](int a, int j) { return rnd<CD>(att[a * A + j]); },
-          [&](int j, int c) { return msg[j * d + c]; },
-          [&](int a, int c, float acc) {
-            X[a * lx + ro_off + c] = rnd<CD>(acc);
-            so_ws[((size_t)t * A + a) * d + c] = rnd<CD>(acc);
-          });
+      if constexpr (!kFreeze)
+        pool([&](int a, int c, float acc) {
+          X[a * lx + ro_off + c] = rnd<CD>(acc);
+          so_ws[((size_t)t * A + a) * d + c] = rnd<CD>(acc);
+        });
       auto stage_gh = [&](int a, int g, float acc) {
         if (a < A) Rc[a * lg + g] = acc;
       };
@@ -498,7 +618,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         X[a * lx] = rnd<CD>(t > 0 ? px[a] - xs[(t - 1) * A + a] : 0.f);
         X[a * lx + 1] = rnd<CD>(t > 0 ? py[a] - ys[(t - 1) * A + a] : 0.f);
       }
-      attend(t);
+      if constexpr (!kFreeze) attend(t);
       __syncthreads();
       // GRU adjoint of step t, from the gates the forward sweep saved:
       // G <- [drp | dzp | dnp | dnp * r], R its rounded copy
@@ -545,7 +665,11 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
               dsc[a * C + n] = acc;
               dsc_ws[((size_t)p * T + t) * A * C + a * C + n] = acc;
             } else if (n < C + d) {
-              dsoc[a * d + n - C] = rnd<CD>(acc);  // only products read it
+              if constexpr (kFreeze)  // the deferred adjoint's bucket
+                (score_pass ? bkc_ws : bkr_ws)[((size_t)t * A + a) * d + n
+                                               - C] += acc;
+              else
+                dsoc[a * d + n - C] = rnd<CD>(acc);  // only products read it
             } else {
               d_dec[(row(a) * T + t) * d + n - C - d] += acc;
             }
@@ -594,53 +718,18 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           dbh[gg] += s;
       }
       __syncthreads();
-      // the social pooling adjoint: d msg, then d att
-      tile_mm<4, 2>(
-          A, d, A, [&](int j, int a) { return rnd<CD>(att[a * A + j]); },
-          [&](int a, int c) { return dsoc[a * d + c]; },
-          [&](int j, int c, float acc) {
-            d_msg[(row(j) * T + t) * d + c] += acc;
-          });
-      tile_mm<4, 2>(
-          A, A, d, [&](int a, int c) { return dsoc[a * d + c]; },
-          [&](int c, int j) { return msg[j * d + c]; },
-          [&](int a, int j, float acc) { dl[a * A + j] = acc; });
-      __syncthreads();
-      // the softmax adjoint, one warp per row: dl <- d logits
-      for (int a = warp; a < A; a += nwarps) {
-        const float* w = att + a * A;
-        float* r = dl + a * A;
-        float dot = 0.f;
-        for (int j = lane; j < A; j += 32) dot += r[j] * nbok[a] * w[j];
-        dot = warp_sum(dot);
-        const float xa = px[a], ya = py[a];
-        const float sqa = xa * xa + ya * ya;
-        float lt = 0.f;
-        for (int j = lane; j < A; j += 32) {
-          float v = 0.f;
-          if (j != a && live[j] > 0.f) {
-            const float dsm = r[j] * nbok[a];
-            v = w[j] * dsm - w[j] * dot;
-            const float xj = px[j], yj = py[j];
-            const float d2 = (sqa + (xj * xj + yj * yj))
-                             - 2.f * (xa * xj + ya * yj);
-            lt += v * d2;
-          }
-          r[j] = v;
-        }
-        lt = warp_sum(lt);
-        if (lane == 0) ltrow[a] = lt;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        float s = 0.f;
-        for (int a = 0; a < A; ++a) s += ltrow[a];
-        ltau_acc += s / (tau * tau) * expf(ltau);
+      if constexpr (!kFreeze) {
+        // the social pooling adjoint: d msg, then d att, then d logits
+        pool_adjoint(t, dsoc, true);
+        __syncthreads();
+        softmax_adjoint(px, py);
+        __syncthreads();
+        add_ltau();
       }
       if (!score_pass) {
-        // position cotangents: scene gather, social distances, velocity;
-        // one warp per agent, its lanes summing over channels and
-        // neighbours (a fixed butterfly order)
+        // position cotangents: scene gather, social distances (deferred
+        // under social_freeze), velocity; one warp per agent, its lanes
+        // summing over channels and neighbours (a fixed butterfly order)
         for (int a = warp; a < A; a += nwarps) {
           const float xa = px[a], ya = py[a];
           const Corners q = corners(xa, ya, G);
@@ -652,20 +741,8 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
               s = fmaf(rnd<CD>(dsc[a * C + c]), to_f(fm[q.n[e] * C + c]), s);
             dhot[e] = warp_sum(s);
           }
-          float rsum = 0.f, csum = 0.f, mx = 0.f, my = 0.f;
-          for (int j = lane; j < A; j += 32) {
-            const float dra = -dl[a * A + j] / tau;
-            const float dca = -dl[j * A + a] / tau;
-            rsum += dra;
-            csum += dca;
-            const float sym = rnd<CD>(dra + dca);
-            mx = fmaf(sym, rnd<CD>(px[j]), mx);
-            my = fmaf(sym, rnd<CD>(py[j]), my);
-          }
-          rsum = warp_sum(rsum);
-          csum = warp_sum(csum);
-          mx = warp_sum(mx);
-          my = warp_sum(my);
+          float2 soc = make_float2(0.f, 0.f);
+          if constexpr (!kFreeze) soc = social_dpos(a, px, py);
           if (lane == 0) {
             const float in_x = (xa > 0.f && xa < 1.f) ? (float)(G - 1) : 0.f;
             const float in_y = (ya > 0.f && ya < 1.f) ? (float)(G - 1) : 0.f;
@@ -673,8 +750,10 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
                          + (dhot[3] - dhot[2]) * q.fy) * in_x;
             float gpy = ((dhot[2] - dhot[0]) * (1.f - q.fx)
                          + (dhot[3] - dhot[1]) * q.fx) * in_y;
-            gpx += 2.f * ((rsum + csum) * xa - mx);
-            gpy += 2.f * ((rsum + csum) * ya - my);
+            if constexpr (!kFreeze) {
+              gpx += soc.x;
+              gpy += soc.y;
+            }
             gx[t * A + a] += gpx;
             gy[t * A + a] += gpy;
             if (t > 0) {
@@ -684,6 +763,46 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
               gy[(t - 1) * A + a] -= veld[2 * a + 1];
             }
           }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if constexpr (kFreeze) {
+    // the deferred frozen-attention adjoint, once per step; xs/ys hold the
+    // initial positions again (the last pass was p = 0). The attention is
+    // recomputed from them, as the reverse sweeps recompute theirs.
+    float* const s_all = dhc;  // rounded (refine + re-score) bucket (A, d)
+    float* const s_ref = hp;   // rounded refine bucket (A, d)
+    for (int t = 0; t < T; ++t) {
+      const float* px = xs + t * A;
+      const float* py = ys + t * A;
+      load_dec_msg(t);
+      attend(t);
+      for (int i = tid; i < A * d; i += nth) {
+        const float r = bkr_ws[(size_t)t * A * d + i];
+        s_all[i] = rnd<CD>(r + bkc_ws[(size_t)t * A * d + i]);
+        s_ref[i] = rnd<CD>(r);
+      }
+      __syncthreads();
+      // d msg and d soc_logtau hear both buckets
+      pool_adjoint(t, s_all, true);
+      __syncthreads();
+      softmax_adjoint(px, py);
+      __syncthreads();
+      add_ltau();
+      __syncthreads();
+      // the positions only the refine passes' bucket
+      pool_adjoint(t, s_ref, false);
+      __syncthreads();
+      softmax_adjoint(px, py);
+      __syncthreads();
+      for (int a = warp; a < A; a += nwarps) {
+        const float2 soc = social_dpos(a, px, py);
+        if (lane == 0) {
+          gx[t * A + a] += soc.x;
+          gy[t * A + a] += soc.y;
         }
       }
       __syncthreads();
@@ -756,7 +875,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   for (int i = tid; i < G * G * C; i += nth) dfm[i] = acc[i];
 }
 
-template <typename CD, bool kMma>
+template <typename CD, bool kMma, bool kFreeze>
 int launch_bwd(const void* const* in, void* const* out, void* ws, int B,
                int A, int K, int T, int d, int G, int C, int R,
                float delta_scale, cudaStream_t stream) {
@@ -766,13 +885,14 @@ int launch_bwd(const void* const* in, void* const* out, void* ws, int B,
   if (bytes > kMaxSmem || bytes / 4 < (size_t)G * G * C + C + 8
       || G * G >= (1 << 24))
     return cudaErrorInvalidValue;
-  cudaFuncSetAttribute(ioc_refine_bwd_kernel<CD, kMma>,
+  cudaFuncSetAttribute(ioc_refine_bwd_kernel<CD, kMma, kFreeze>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
   using F = const float*;
   using Cp = const CD*;
   float* const* o = reinterpret_cast<float* const*>(out);
-  ioc_refine_bwd_kernel<CD, kMma><<<B * K, kBwdThreads, bytes, stream>>>(
+  ioc_refine_bwd_kernel<CD, kMma, kFreeze>
+      <<<B * K, kBwdThreads, bytes, stream>>>(
       F(in[0]), F(in[1]), Cp(in[2]), Cp(in[3]), Cp(in[4]), F(in[5]),
       F(in[6]), Cp(in[7]), Cp(in[8]), Cp(in[9]), Cp(in[10]), Cp(in[11]),
       F(in[12]), F(in[13]), F(in[14]), F(in[15]), F(in[16]), F(in[17]),
@@ -787,8 +907,10 @@ int launch_bwd(const void* const* in, void* const* out, void* ws, int B,
 
 // Float32 words of the device-memory workspace for B * K blocks.
 extern "C" long long ioc_refine_bwd_ws_words(int B, int A, int K, int T,
-                                             int d, int C, int R) {
-  return (long long)B * K * (long long)desire::bwd_ws_words(A, T, d, C, R);
+                                             int d, int C, int R,
+                                             int social_freeze) {
+  return (long long)B * K
+         * (long long)desire::bwd_ws_words(A, T, d, C, R, social_freeze);
 }
 
 // in[21]: traj (B, A, K, T, 2) f32, iters (R, B, A, K, T, 2) f32, dec_h and
@@ -801,21 +923,24 @@ extern "C" long long ioc_refine_bwd_ws_words(int B, int A, int K, int T,
 // out[11], float32: d_traj (B, A, K, T, 2), d_dec and d_msg (B, A, K, T, d),
 // then per-block partials (B * K, ...): feature map (G * G * C), wi
 // (F * 3d), wh (d * 3d), bi (3d), bh (3d), heads (d * 4), heads bias (4),
-// soc_logtau (1). ws: ioc_refine_bwd_ws_words(...) float32 words. CD is
-// bfloat16 when is_bf16, else float32. Returns cudaGetLastError().
+// soc_logtau (1). ws: ioc_refine_bwd_ws_words(..., social_freeze) float32
+// words. CD is bfloat16 when is_bf16, else float32. social_freeze: the
+// social block is pooled at the initial positions in every pass. Returns
+// cudaGetLastError().
 extern "C" int ioc_refine_bwd_launch(int is_bf16, const void* const* in,
                                      void* const* out, void* ws, int B,
                                      int A, int K, int T, int d, int G,
-                                     int C, int R, float delta_scale,
-                                     void* stream) {
+                                     int C, int R, int social_freeze,
+                                     float delta_scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+#define DESIRE_BWD(CD, MMA)                                                \
+  (social_freeze ? desire::launch_bwd<CD, MMA, true>(                      \
+                       in, out, ws, B, A, K, T, d, G, C, R, delta_scale, s) \
+                 : desire::launch_bwd<CD, MMA, false>(                     \
+                       in, out, ws, B, A, K, T, d, G, C, R, delta_scale, s))
   if (is_bf16 && d % 16 == 0 && C % 16 == 0)
-    return desire::launch_bwd<__nv_bfloat16, true>(in, out, ws, B, A, K, T, d,
-                                                    G, C, R, delta_scale, s);
-  if (is_bf16)
-    return desire::launch_bwd<__nv_bfloat16, false>(in, out, ws, B, A, K, T,
-                                                     d, G, C, R, delta_scale,
-                                                     s);
-  return desire::launch_bwd<float, false>(in, out, ws, B, A, K, T, d, G, C, R,
-                                          delta_scale, s);
+    return DESIRE_BWD(__nv_bfloat16, true);
+  if (is_bf16) return DESIRE_BWD(__nv_bfloat16, false);
+  return DESIRE_BWD(float, false);
+#undef DESIRE_BWD
 }

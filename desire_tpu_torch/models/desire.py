@@ -99,9 +99,6 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
              train, kernel_weights, keep_x, keep_y):
     if cfg.mesh_data * cfg.mesh_k > 1:
         raise NotImplementedError("meshed execution is not ported")
-    if train and cfg.remat:
-        raise NotImplementedError("remat (activation recompute) is not "
-                                  "ported")
     K = k_samples or cfg.num_samples
     xy = xy.float()
     mask = mask.float()

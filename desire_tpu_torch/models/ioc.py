@@ -6,16 +6,22 @@ score is the future-mask-weighted sum of rewards. A gated, tanh-bounded
 delta head refines the hypothesis, ``num_refine`` times, and a final pass
 re-scores the refined trajectory.
 
-This is the plain path; with ``cfg.use_pallas`` and social pooling on, the
-model runs the fused kernels of ``ops/ioc_fused.py`` (and, in training,
-``ops/ioc_bwd.py``) instead. It differentiates like the JAX version: the
-final re-score reads the refined positions detached, so the ranking loss
-never moves a hypothesis.
+This is the layer-by-layer path; with ``cfg.use_pallas`` and social
+pooling on, the model runs the fused kernels of ``ops/ioc_fused.py`` (and,
+in training with ``cfg.fused_train``, ``ops/ioc_bwd.py``) instead. On this
+path ``cfg.use_pallas`` pools the scene through the scene-pool kernels
+(``scf.fuse_context``). It differentiates like the JAX version: the final
+re-score reads the refined positions detached, so the ranking loss never
+moves a hypothesis. ``cfg.remat`` recomputes each refinement pass in the
+backward instead of keeping its activations.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import layers as L
@@ -75,13 +81,23 @@ def ioc_forward(p_ioc, p_scf, cfg: DesireConfig, traj, dec_h, feat_map,
     msg = scf.social_messages(p_scf, dec_h) if cfg.use_social else dec_h
     social0 = (scf.social_pool(p_scf, traj0, msg, live)
                if (cfg.use_social and cfg.social_freeze) else None)
-    per_iter = []
-    for _ in range(max(iters, 1)):
+
+    def one_iter(traj, msg, social0):
         feats = scf.fuse_context(p_scf, cfg, traj, msg, feat_map, live,
                                  social=social0)
         _, deltas, _ = score_and_delta(p_ioc, feats, dec_h, fut_mask,
                                        cfg.scene_channels)
-        traj = traj + deltas.float()
+        return traj + deltas.float()
+
+    step = one_iter
+    if cfg.remat and torch.is_grad_enabled():
+        # recompute each pass in the backward instead of keeping its
+        # (B, K*T, A, A) social attention; a pass draws no random numbers
+        step = functools.partial(checkpoint, one_iter, use_reentrant=False,
+                                 preserve_rng_state=False)
+    per_iter = []
+    for _ in range(max(iters, 1)):
+        traj = step(traj, msg, social0)
         per_iter.append(traj)
     # the re-score judges the hypotheses and must not move them: its
     # positions are detached (under social_freeze its social block is

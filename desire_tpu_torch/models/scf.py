@@ -6,16 +6,21 @@ positions pool from it bilinearly. Social context is a distance-kernel
 attention over the agents of one hypothesis lane and step.
 
 ``bilinear_pool``, ``social_messages``, ``social_pool`` and
-``fuse_context`` serve the plain IOC path (``models/ioc.ioc_forward``);
-the fused IOC kernel computes the same context inside its own loop.
+``fuse_context`` serve the layer-by-layer IOC path (``models/ioc.
+ioc_forward``); the fused IOC kernel computes the same context inside its
+own loop. With ``cfg.use_pallas`` that path pools the scene through the
+scene-pool kernels (``ops.bilinear_pool``), else through ``bilinear_pool``
+here, which keeps the XLA path's numerics (weights not rounded).
 """
 
 from __future__ import annotations
 
 import torch
 
+from desire_tpu_torch import ops
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import layers as L
+from desire_tpu_torch.ops import scene_pool
 
 
 def init_scf(generator, cfg: DesireConfig, device, dtype=torch.float32):
@@ -32,30 +37,13 @@ def init_scf(generator, cfg: DesireConfig, device, dtype=torch.float32):
     }
 
 
-def _corners(pos, g):
-    """Align-corners bilinear corners of positions clamped to [0, 1]:
-    flat node indices (4 x (...)) and weights (4 x (...))."""
-    xy = torch.clamp(pos, 0.0, 1.0) * (g - 1)
-    x0 = torch.floor(xy[..., 0])
-    y0 = torch.floor(xy[..., 1])
-    fx = xy[..., 0] - x0
-    fy = xy[..., 1] - y0
-    x0 = x0.long()
-    y0 = y0.long()
-    x1 = torch.clamp(x0 + 1, max=g - 1)
-    y1 = torch.clamp(y0 + 1, max=g - 1)
-    idx = (y0 * g + x0, y0 * g + x1, y1 * g + x0, y1 * g + x1)
-    w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
-    return idx, w
-
-
 def rasterize_occupancy(obs_xy, obs_mask, grid):
     """(B, To, A, 2) normalized positions -> (B, G, G, 2) raster: channel 0
     time-integrated occupancy, channel 1 last-step occupancy. A bilinear
     splat onto the nodes bilinear_pool samples from, by scatter-add
     (``index_add_``; its order of addition on CUDA is not fixed)."""
     b, t, a, _ = obs_xy.shape
-    idx, cw = _corners(obs_xy, grid)
+    idx, cw, _, _ = scene_pool.corners(obs_xy, grid)
     last = torch.zeros_like(obs_mask)
     last[:, -1] = obs_mask[:, -1]
     w = torch.stack([obs_mask, last], -1)                 # (B, To, A, 2)
@@ -89,7 +77,7 @@ def bilinear_pool(feat_map, pos):
     (B, P, 2) in [0, 1]. Returns (B, P, C)."""
     b, g, _, c = feat_map.shape
     flat = feat_map.reshape(b, g * g, c)
-    idx, w = _corners(pos, g)
+    idx, w, _, _ = scene_pool.corners(pos, g)
 
     def gather(ii):
         return torch.take_along_dim(flat, ii[..., None], dim=1)
@@ -136,7 +124,8 @@ def fuse_context(p, cfg: DesireConfig, traj, msg, feat_map, live,
     message dtype. social: a precomputed social block (social_freeze)."""
     vel = torch.diff(traj, dim=-2, prepend=traj[..., :1, :]).to(msg.dtype)
     b, a, k, tf, _ = traj.shape
-    scene = bilinear_pool(feat_map, traj.reshape(b, a * k * tf, 2))
+    pool = ops.bilinear_pool if cfg.use_pallas else bilinear_pool
+    scene = pool(feat_map, traj.reshape(b, a * k * tf, 2))
     scene = scene.reshape(b, a, k, tf, -1).to(msg.dtype)
     if social is None and cfg.use_social:
         social = social_pool(p, traj, msg, live)

@@ -9,7 +9,8 @@ At inference every lane draws z from the (conditional) prior. In training
 the future is encoded too, the recognition network gives the posterior
 q(z | X, Y), the first round(K * prior_lane_frac) lanes draw from the
 prior (their noise scaled by the learned temperature) and the rest from the
-posterior, and the embedded encoder inputs get inverted dropout. All
+posterior, and the embedded encoder inputs get inverted dropout; with
+``cfg.remat`` the mask decoder is recomputed in the backward. All
 randomness is an input: the latent noise ``eps`` and the dropout keep-masks
 may be passed in, else they are drawn from a ``torch.Generator``.
 """
@@ -20,6 +21,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch import ops
@@ -406,7 +408,14 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
             if mu_p is not None:
                 z = mu_p[:, None] + torch.exp(0.5 * logvar_p)[:, None] * eps
         z_flat = z.reshape(n * K, lat)
-        beta, _ = vae_decode_mask(p, z_flat, cfg.vae_side)
+        if cfg.remat and torch.is_grad_enabled():
+            # recompute the per-lane mask decoder in the backward instead of
+            # keeping its (N*K, ...) activations
+            beta, _ = checkpoint(vae_decode_mask, p, z_flat, cfg.vae_side,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            beta, _ = vae_decode_mask(p, z_flat, cfg.vae_side)
         h_seed = (beta * hx.repeat_interleave(K, dim=0)
                   + L.dense(p["z_skip"], z_flat)
                   + rho_seed.repeat_interleave(K, dim=0))

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``desire_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
-at first use, into ``desire_tpu_torch/_build/<hash of the sources>/`` (a
-directory git ignores), so a fresh checkout builds everything itself. The
-library is written under a temporary name and renamed into place, so
-processes that build at the same time do not read a half-written file.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build happens at first use,
+into ``desire_tpu_torch/_build/<hash of the sources>/`` (a directory git
+ignores), so a fresh checkout builds everything itself. The library is
+written under a temporary name and renamed into place, so processes that
+build at the same time do not read a half-written file.
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libdesire_kernels.so"
 
 # Launches of each kernel: every wrapper adds one where it launches its
 # kernel, and nowhere else.
 LAUNCHES = {"sgm_sample": 0, "ioc_refine": 0, "ioc_refine_train": 0,
-            "ioc_refine_bwd": 0, "nll_fwd": 0, "nll_bwd": 0}
+            "ioc_refine_bwd": 0, "nll_fwd": 0, "nll_bwd": 0,
+            "scene_pool_fwd": 0, "scene_pool_bwd": 0}
 
 
 def reset_launch_counts():
@@ -72,16 +74,27 @@ def build(verbose=False):
     if lib.exists() and not verbose:
         return lib, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [src.name for src, p in zip(sources(), procs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+        so = os.path.join(tmp, LIB_NAME)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("linking the kernels failed:\n" + proc.stdout
+                               + proc.stderr)
+        os.replace(so, lib)
+    return lib, "".join(logs)
 
 
 _P = ctypes.c_void_p
@@ -101,15 +114,19 @@ def library():
     lib.ioc_refine_launch.argtypes = ([_I, _I] + [_P] * 18 + [_I] * 9
                                       + [ctypes.c_float, _P])
     lib.ioc_refine_launch.restype = _I
-    lib.ioc_refine_bwd_launch.argtypes = ([_I, _P, _P, _P] + [_I] * 8
+    lib.ioc_refine_bwd_launch.argtypes = ([_I, _P, _P, _P] + [_I] * 9
                                           + [ctypes.c_float, _P])
     lib.ioc_refine_bwd_launch.restype = _I
-    lib.ioc_refine_bwd_ws_words.argtypes = [_I] * 7
+    lib.ioc_refine_bwd_ws_words.argtypes = [_I] * 8
     lib.ioc_refine_bwd_ws_words.restype = ctypes.c_longlong
     lib.nll_fwd_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P]
     lib.nll_fwd_launch.restype = _I
     lib.nll_bwd_launch.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.nll_bwd_launch.restype = _I
+    lib.scene_pool_fwd_launch.argtypes = [_I] + [_P] * 3 + [_I] * 4 + [_P]
+    lib.scene_pool_fwd_launch.restype = _I
+    lib.scene_pool_bwd_launch.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_P]
+    lib.scene_pool_bwd_launch.restype = _I
     return lib
 
 

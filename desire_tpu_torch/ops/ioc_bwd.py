@@ -12,6 +12,10 @@ msg = dec_h Wmsg + bmsg; the chain back through that product into dec_h
 and the message weights is left to ``torch.matmul``, as the JAX wrapper
 leaves it to XLA. live and fut_mask are data and get no gradient.
 
+Under social_freeze the social block is pooled once, at the initial
+positions, and reused by every pass; the backward kernel then runs one
+deferred attention adjoint after its passes (the TPU kernel's variant).
+
 On CPU tensors the plain version runs instead: autograd through
 ``ioc_fused.ioc_refine_plain(collect_iters=True)``, which carries the same
 stop-gradients as ``models/ioc.ioc_forward``.
@@ -56,10 +60,11 @@ def social_messages(p_scf, dec_h):
 
 def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
                         fut_mask, iters, d_refined, d_scores, d_iters, *,
-                        num_refine, delta_scale):
+                        num_refine, delta_scale, social_freeze=False):
     """Launch the backward kernel (``csrc/ioc_refine_bwd.cu``) on CUDA
     tensors. Shapes as :func:`ioc_fused.ioc_refine_cuda`; iters is its
-    collect_iters output (R, B, A, K, T, 2) and the cotangents are float32.
+    collect_iters output (R, B, A, K, T, 2), made with the same
+    social_freeze, and the cotangents are float32.
 
     Returns (d_traj f32, d_dec, d_msg (both float32), d_feat_map (B, G, G,
     C) float32, the GRU gradients {wi, wh, bi, bh}, the head gradients
@@ -112,12 +117,13 @@ def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
             z(nb, g * g * c), z(nb, f, 3 * d), z(nb, d, 3 * d), z(nb, 3 * d),
             z(nb, 3 * d), z(nb, d, 4), z(nb, 4), z(nb)]
     lib = _build.library()
-    ws = z(int(lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r)))
+    freeze = int(bool(social_freeze))
+    ws = z(int(lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r, freeze)))
     ptr_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     ptr_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
     rc = lib.ioc_refine_bwd_launch(
         int(cd == torch.bfloat16), ptr_in, ptr_out, ws.data_ptr(), b, a, k,
-        t, d, g, c, r, float(delta_scale),
+        t, d, g, c, r, freeze, float(delta_scale),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"ioc_refine_bwd kernel launch failed: CUDA "
@@ -140,16 +146,18 @@ class _TrainableIoc(torch.autograd.Function):
     kernel, then the message product's chain rule."""
 
     @staticmethod
-    def forward(ctx, num_refine, delta_scale, traj, dec_h, feat_map, live,
-                fut_mask, msg_w, msg_b, ltau, *leaves):
+    def forward(ctx, num_refine, delta_scale, social_freeze, traj, dec_h,
+                feat_map, live, fut_mask, msg_w, msg_b, ltau, *leaves):
         p_ioc, p_scf = _trees(leaves, msg_w, msg_b, ltau)
         w = pack_ioc(p_ioc, p_scf, dec_h.dtype, traj.device, traj.shape[1])
+        kw = dict(num_refine=num_refine, delta_scale=delta_scale,
+                  social_freeze=social_freeze)
         refined, scores, iters = ioc_refine_cuda(
-            w, traj, dec_h, feat_map, live, fut_mask, num_refine=num_refine,
-            delta_scale=delta_scale, collect_iters=True)
+            w, traj, dec_h, feat_map, live, fut_mask, collect_iters=True,
+            **kw)
         ctx.save_for_backward(traj, dec_h, feat_map, live, fut_mask, iters,
                               msg_w, msg_b, ltau, *leaves)
-        ctx.consts = num_refine, delta_scale
+        ctx.kw = kw
         # scores reach the loss in the compute dtype, as the plain path
         # gives them (ioc_fused.py:979 of the JAX package)
         return refined, scores.to(dec_h.dtype), iters
@@ -158,7 +166,6 @@ class _TrainableIoc(torch.autograd.Function):
     def backward(ctx, d_refined, d_scores, d_iters):
         (traj, dec_h, feat_map, live, fut_mask, iters, msg_w, msg_b, ltau,
          *leaves) = ctx.saved_tensors
-        num_refine, delta_scale = ctx.consts
         p_ioc, p_scf = _trees(leaves, msg_w, msg_b, ltau)
 
         def ct(x, shape):       # an output autograd saw unused gets None
@@ -170,8 +177,7 @@ class _TrainableIoc(torch.autograd.Function):
          d_ltau) = ioc_refine_bwd_cuda(
             p_ioc, p_scf, traj, dec_h, msg, feat_map, live, fut_mask, iters,
             ct(d_refined, traj.shape), ct(d_scores, traj.shape[:3]),
-            ct(d_iters, iters.shape), num_refine=num_refine,
-            delta_scale=delta_scale)
+            ct(d_iters, iters.shape), **ctx.kw)
         cd = dec_h.dtype
         # chain msg = dec_h Wmsg + bmsg into dec_h and the message weights
         d_msg = d_msg.to(cd).float()
@@ -184,8 +190,8 @@ class _TrainableIoc(torch.autograd.Function):
                 grads[(h, n)] = g_heads[h][n]
         leaf_grads = [grads[path].to(v.dtype)
                       for path, v in zip(_IOC_LEAVES, leaves)]
-        return (None, None, d_traj, d_dec, d_fmap.to(feat_map.dtype), None,
-                None, d_wmsg.to(msg_w.dtype), d_bmsg.to(msg_b.dtype),
+        return (None, None, None, d_traj, d_dec, d_fmap.to(feat_map.dtype),
+                None, None, d_wmsg.to(msg_w.dtype), d_bmsg.to(msg_b.dtype),
                 d_ltau.to(ltau.dtype).reshape(ltau.shape), *leaf_grads)
 
 
@@ -197,23 +203,20 @@ def ioc_refine_train(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
     feat_map and the IOC and message parameters.
 
     CUDA tensors run the training forward kernel and the backward kernel;
-    CPU tensors the plain version under autograd. The backward kernel does
-    not cover social_freeze."""
-    kw = dict(num_refine=num_refine, delta_scale=delta_scale)
+    CPU tensors the plain version under autograd."""
     if traj.is_cuda:
-        if social_freeze:
-            raise NotImplementedError(
-                "the IOC backward kernel does not cover social_freeze")
         leaves = [_ioc_leaf(p_ioc, path) for path in _IOC_LEAVES]
         return _TrainableIoc.apply(
-            int(num_refine), float(delta_scale), traj.float().contiguous(),
-            dec_h.contiguous(), feat_map.contiguous(),
+            int(num_refine), float(delta_scale), bool(social_freeze),
+            traj.float().contiguous(), dec_h.contiguous(),
+            feat_map.contiguous(),
             live.float().contiguous(), fut_mask.float().contiguous(),
             p_scf["soc_msg"]["w"], p_scf["soc_msg"]["b"],
             p_scf["soc_logtau"], *leaves)
     if traj.device.type == "cpu":
         refined, scores, iters = ioc_refine_plain(
             p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask,
-            social_freeze=social_freeze, collect_iters=True, **kw)
+            num_refine=num_refine, delta_scale=delta_scale,
+            social_freeze=social_freeze, collect_iters=True)
         return refined, scores.to(dec_h.dtype), iters
     raise ValueError(f"no IOC kernel for device {traj.device}")

@@ -34,6 +34,7 @@ import dataclasses
 import torch
 
 from desire_tpu_torch.ops import _build
+from desire_tpu_torch.ops.scene_pool import bilinear_pool_plain
 
 _F32 = torch.float32
 
@@ -57,27 +58,13 @@ def _split_weights(p_ioc, c, d):
                 heads_w=heads_w, heads_b=heads_b)
 
 
-def _scene(feat_map, px, py, cd):
-    """Bilinear pooling at (B, K, T, A) positions -> (B, K, T, A, C) f32,
-    corner weights rounded to cd as operands of the pooling product."""
-    b, g, _, c = feat_map.shape
-    flat = feat_map.reshape(b, g * g, c).to(cd).to(_F32)
-    xs = torch.clamp(px, 0.0, 1.0) * (g - 1)
-    ys = torch.clamp(py, 0.0, 1.0) * (g - 1)
-    x0 = torch.floor(xs)
-    y0 = torch.floor(ys)
-    fx, fy = xs - x0, ys - y0
-    x0, y0 = x0.long(), y0.long()
-    x1 = torch.clamp(x0 + 1, max=g - 1)
-    y1 = torch.clamp(y0 + 1, max=g - 1)
-    out = 0.0
-    for ix, iy, wt in ((x0, y0, (1 - fx) * (1 - fy)), (x1, y0, fx * (1 - fy)),
-                       (x0, y1, (1 - fx) * fy), (x1, y1, fx * fy)):
-        idx = (iy * g + ix).reshape(b, -1, 1)
-        got = torch.take_along_dim(flat, idx, dim=1).reshape(
-            px.shape + (c,))
-        out = out + wt.to(cd).to(_F32)[..., None] * got
-    return out
+def _scene(feat_map, px, py):
+    """The scene block at (B, K, T, A) positions -> (B, K, T, A, C), as the
+    scene-pool kernel pools it (corner weights rounded to the map's dtype).
+    """
+    b, k, t, a = px.shape
+    pos = torch.stack([px, py], dim=-1).reshape(b, k * t * a, 2)
+    return bilinear_pool_plain(feat_map, pos).reshape(b, k, t, a, -1)
 
 
 def ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
@@ -138,7 +125,7 @@ def ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
         vx = px - torch.cat([px[:, :, :1], px[:, :, :-1]], dim=2)
         vy = py - torch.cat([py[:, :, :1], py[:, :, :-1]], dim=2)
         gi = (vx[..., None] * wiv[0] + vy[..., None] * wiv[1] + gi_dec
-              + _mm(_scene(feat_map, px, py, cd), w["wis"], cd)
+              + _mm(_scene(feat_map.to(cd), px, py), w["wis"], cd)
               + _mm(soc, w["wio"], cd))
         h = x.new_zeros((b, k, a, d))
         outs = []

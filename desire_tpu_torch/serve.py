@@ -143,7 +143,9 @@ class Predictor:
             torch.as_tensor(xy, device=dev), torch.as_tensor(mask, device=dev),
             torch.as_tensor(ids, device=dev),
             None if eps is None else torch.as_tensor(eps, device=dev))
-        traj, scores, best = (traj.cpu().numpy(), scores.cpu().numpy(),
+        # the layer-by-layer IOC scores in the compute dtype; numpy has no
+        # bfloat16
+        traj, scores, best = (traj.cpu().numpy(), scores.float().cpu().numpy(),
                               best.cpu().numpy())
         self._latencies_ms.append((time.perf_counter() - t0) * 1e3)
         self._calls += 1

@@ -151,7 +151,7 @@ def _ioc_train_case(cuda_device, dtype, c, a, seed=1):
     return cfg, p, args, wts
 
 
-def _ioc_train_grads(p, args, wts, kernel):
+def _ioc_train_grads(p, args, wts, kernel, social_freeze=False):
     """Gradients of the JAX kernel suite's IOC test loss for the inputs and
     every IOC and message parameter, through the kernels or autograd
     through the plain version."""
@@ -165,7 +165,8 @@ def _ioc_train_grads(p, args, wts, kernel):
     trees = tree_unflatten(trees, leaves)
     ins = [x.detach().clone().requires_grad_(True)
            for x in (traj, dec_h, fmap)]
-    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE)
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze)
     if kernel:
         refined, scores, iters = ioc_bwd.ioc_refine_train(
             trees["ioc"], trees["scf"], *ins, live, fut, **kw)
@@ -179,22 +180,26 @@ def _ioc_train_grads(p, args, wts, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,c,a", [("float32", 8, 5),
-                                       ("bfloat16", 16, 5),
-                                       ("bfloat16", 8, 70)])
-def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a):
+@pytest.mark.parametrize("dtype,c,a,social_freeze", [
+    ("float32", 8, 5, False), ("bfloat16", 16, 5, False),
+    ("bfloat16", 8, 70, False), ("float32", 8, 5, True),
+    ("bfloat16", 16, 5, True), ("bfloat16", 8, 70, True)])
+def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a,
+                                             social_freeze):
     """The training forward (collect_iters) and the backward kernel against
-    autograd through the plain version, every input and parameter leaf.
+    autograd through the plain version, every input and parameter leaf,
+    with and without social_freeze (its deferred attention adjoint).
     f32: the JAX kernel suite's gradient tolerances. bf16: relative L2
     error of each leaf (the kernel keeps cotangents in float32 where
     autograd rounds them to bf16 at every cast)."""
-    from desire_tpu_torch.ops import ioc_bwd
     cfg, p, args, wts = _ioc_train_case(cuda_device, dtype, c, a)
     before = {n: _build.LAUNCHES[n] for n in ("ioc_refine_train",
                                               "ioc_refine_bwd")}
-    got = _ioc_train_grads(p, args, wts, kernel=True)
+    got = _ioc_train_grads(p, args, wts, kernel=True,
+                           social_freeze=social_freeze)
     assert all(_build.LAUNCHES[n] == before[n] + 1 for n in before)
-    ref = _ioc_train_grads(p, args, wts, kernel=False)
+    ref = _ioc_train_grads(p, args, wts, kernel=False,
+                           social_freeze=social_freeze)
     for g, r in zip(got, ref):
         g, r = g.float().cpu(), r.float().cpu()
         if dtype == "float32":
@@ -205,28 +210,24 @@ def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a):
                 < 0.05
     w = ioc_fused.pack_ioc(p["ioc"], p["scf"], args[1].dtype, cuda_device,
                            a)
-    outs = ioc_fused.ioc_refine_cuda(w, *args, num_refine=2,
-                                     delta_scale=_DELTA_SCALE,
-                                     collect_iters=True)
-    plain = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args,
-                                       num_refine=2,
-                                       delta_scale=_DELTA_SCALE,
-                                       collect_iters=True)
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze, collect_iters=True)
+    outs = ioc_fused.ioc_refine_cuda(w, *args, **kw)
+    plain = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args, **kw)
     np.testing.assert_allclose(outs[2].cpu().numpy(),
                                plain[2].cpu().numpy(), rtol=0,
                                atol=2e-5 if dtype == "float32" else 5e-3)
-    with pytest.raises(NotImplementedError):
-        ioc_bwd.ioc_refine_train(p["ioc"], p["scf"], *args, num_refine=2,
-                                 delta_scale=_DELTA_SCALE,
-                                 social_freeze=True)
 
 
 @pytest.mark.cuda
-def test_ioc_backward_kernel_is_deterministic(cuda_device):
+@pytest.mark.parametrize("social_freeze", [False, True])
+def test_ioc_backward_kernel_is_deterministic(cuda_device, social_freeze):
     """Two runs on the same inputs give bitwise-equal gradients."""
     cfg, p, args, wts = _ioc_train_case(cuda_device, "bfloat16", 16, 5)
-    first = _ioc_train_grads(p, args, wts, kernel=True)
-    second = _ioc_train_grads(p, args, wts, kernel=True)
+    first = _ioc_train_grads(p, args, wts, kernel=True,
+                             social_freeze=social_freeze)
+    second = _ioc_train_grads(p, args, wts, kernel=True,
+                              social_freeze=social_freeze)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
@@ -263,3 +264,60 @@ def test_nll_kernels_match_plain(cuda_device, n, k, t):
     np.testing.assert_allclose(g_got.cpu().numpy(), g_ref.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
     assert float(g_got[::7].abs().max()) == 0.0
+
+
+def _scene_pool_case(device, b, g, c, p, dtype, seed=0):
+    """Map, positions (a quarter on grid nodes, a quarter outside [0, 1],
+    the last six on the borders and corners) and a cotangent."""
+    rng = np.random.default_rng(seed)
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    pos = rng.uniform(0.0, 1.0, (b, p, 2))
+    q = p // 4
+    pos[:, :q] = rng.integers(0, g, (b, q, 2)) / (g - 1)
+    pos[:, q:2 * q] = rng.uniform(-0.5, 1.5, (b, q, 2))
+    pos[:, -6:] = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.3],
+                   [0.7, 0.0], [1.0, 0.0]]
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=device).to(dt)
+    return (f(rng.standard_normal((b, g, g, c)), cd), f(pos),
+            f(rng.standard_normal((b, p, c)), cd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,p", [
+    ("float32", 32, 700), ("float32", 8, 700), ("bfloat16", 32, 700),
+    ("bfloat16", 8, 1000), ("bfloat16", 32, 14400)])
+def test_scene_pool_kernels_match_plain(cuda_device, dtype, c, p):
+    """Forward, d_map and d_pos against the plain versions on the card (P
+    not a multiple of the kernels' chunk, C = 8 loops over fewer lanes),
+    and d_map bitwise equal in two runs. f32: the same products summed in
+    another order (d_map sums up to hundreds of points per node; d_pos sums
+    C terms of up to ~(G - 1) * 4 each, whose float32 rounding reaches
+    ~1e-4 where they cancel). bf16: a result rounded to bf16 may land one
+    step (2^-7 relative at most) away."""
+    from desire_tpu_torch.ops import scene_pool
+    fm, pos, g = _scene_pool_case(cuda_device, 3, 32, c, p, dtype)
+    before = (_build.LAUNCHES["scene_pool_fwd"],
+              _build.LAUNCHES["scene_pool_bwd"])
+    got = scene_pool.scene_pool_fwd_cuda(fm, pos)
+    d_map, d_pos = scene_pool.scene_pool_bwd_cuda(fm, pos, g)
+    assert (_build.LAUNCHES["scene_pool_fwd"],
+            _build.LAUNCHES["scene_pool_bwd"]) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref = scene_pool.bilinear_pool_plain(fm, pos)
+    r_map, r_pos = scene_pool.bilinear_pool_plain_bwd(fm, pos, g)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2.0 ** -7, atol=1e-6))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(d_map.float().cpu().numpy(),
+                               r_map.float().cpu().numpy(),
+                               rtol=1e-4 if dtype == "float32" else 2.0 ** -7,
+                               atol=1e-4)
+    np.testing.assert_allclose(d_pos.cpu().numpy(), r_pos.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    assert float(d_pos[:, p // 4: p // 2][
+        (pos[:, p // 4: p // 2] < 0) | (pos[:, p // 4: p // 2] > 1)]
+        .abs().max()) == 0.0
+    again = scene_pool.scene_pool_bwd_cuda(fm, pos, g)
+    assert torch.equal(again[0], d_map) and torch.equal(again[1], d_pos)

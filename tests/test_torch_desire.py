@@ -138,3 +138,16 @@ def test_predictor_matches_jax(blend, jax_params):
     rec = json.loads(forecast_to_json(got[1], top_k=2))
     assert [a["id"] for a in rec["agents"]] == [1, 2, 4, 5]
     assert all(len(a["hypotheses"]) == 2 for a in rec["agents"])
+
+
+def test_predictor_layer_by_layer_bf16(jax_params):
+    """In bfloat16 with use_social=False the layer-by-layer IOC (through the
+    scene-pool op) scores in bfloat16; the Predictor hands back float32
+    arrays, finite, of the forecast shapes."""
+    cfg = _cfg(compute_dtype="bfloat16", use_social=False)
+    pred = Predictor(from_jax(jax_params), cfg, device="cpu", max_windows=1)
+    got = pred.predict_windows([_window(cfg, 3, 0)], 100.0)[0]
+    assert got["scores"].dtype == np.float32
+    assert got["scores"].shape == (3, cfg.num_samples)
+    assert got["traj"].shape == (3, cfg.num_samples, cfg.pred_len, 2)
+    assert all(np.isfinite(got[k]).all() for k in ("traj", "scores", "best"))

@@ -141,11 +141,18 @@ def _jax_loss(variant):
 
 @pytest.mark.parametrize("variant", [(), (("use_pallas", False),),
                                      (("recon_agg", "mean"),
-                                      ("social_freeze", True))])
+                                      ("social_freeze", True)),
+                                     (("fused_train", False),),
+                                     (("use_social", False),),
+                                     (("fused_train", False),
+                                      ("remat", True))])
 def test_desire_loss_matches_jax(variant, jax_params):
     """The total, every metric and every parameter gradient. The default
     config takes the port's trainable fused IOC (its plain version on the
-    CPU), use_pallas=False the layer-by-layer ioc_forward."""
+    CPU); use_pallas=False, fused_train=False and use_social=False the
+    layer-by-layer ioc_forward, the last two through the scene-pool op
+    (its plain version on the CPU); remat recomputes its passes and the
+    mask decoder in the backward."""
     cfg, fn = _jax_loss(variant)
     xy, mask, ids = _batch(cfg)
     key = jax.random.PRNGKey(3)
@@ -207,7 +214,16 @@ def test_optimizer_matches_optax(clip):
 def test_train_step_matches_jax(jax_params):
     """One make_train_step step against the JAX step, on the same state and
     the JAX step's own random draws."""
-    cfg = _cfg()
+    _check_train_step(_cfg(), jax_params)
+
+
+def test_train_step_unfused_ioc_matches_jax(jax_params):
+    """The same with fused_train=False: the layer-by-layer IOC and the
+    scene-pool op under autograd."""
+    _check_train_step(_cfg(fused_train=False), jax_params)
+
+
+def _check_train_step(cfg, jax_params):
     xy, mask, ids = _batch(cfg, seed=5)
     # the JAX step donates its state: it gets a copy of the shared params
     j_state = jstate.create_train_state(
