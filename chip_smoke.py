@@ -27,15 +27,16 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    versions; all of it also with social_freeze (the IOC backward's
    frozen-attention variant), three steps;
 7. the layer-by-layer IOC path (use_social=False, fused_train=False):
-   holds the scene-pool kernels against their plain versions (float32 at
-   small shapes with edge positions, bfloat16 at the flagship), the float32
-   forward with use_social=False and one float32 step with
-   fused_train=False on the card against the CPU, serves three requests
-   with use_social=False, takes three run_epoch steps with fused_train=False
-   (remat off and on: same losses, peak memory) and with use_social=False,
-   checks that the scene-pool kernels were launched by them, and times the
-   kernels against their plain versions and grid_sample, the serving
-   forward and the training steps;
+   holds the scene-pool kernels against their plain versions (float32 and
+   bfloat16 at small shapes with edge positions, channel counts that take
+   the forward's vector path and its channel loop, bfloat16 at the
+   flagship), the float32 forward with use_social=False and one float32
+   step with fused_train=False on the card against the CPU, serves three
+   requests with use_social=False, takes three run_epoch steps with
+   fused_train=False (remat off and on: same losses, peak memory) and with
+   use_social=False, checks that the scene-pool kernels were launched by
+   them, and times the kernels against their plain versions and
+   grid_sample, the serving forward and the training steps;
 8. prints one JSON line of per-kernel results, then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
@@ -706,6 +707,9 @@ def training_phase(dev, smi, rng):
     w = ioc_fused.pack_ioc(params["ioc"], params["scf"], torch.bfloat16, dev,
                            cfg.max_num_obj)
     msg = ioc_bwd.social_messages(params["scf"], dec_h).contiguous()
+    # the backward's weights packed once, as the training forward does
+    wb = ioc_bwd.pack_ioc_bwd(params["ioc"], params["scf"], torch.bfloat16,
+                              dev)
     bwd_args, kws = {}, {}
     for freeze in (False, True):
         kw = dict(num_refine=cfg.num_refine, delta_scale=_DELTA_SCALE,
@@ -717,8 +721,10 @@ def training_phase(dev, smi, rng):
         bwd_args[freeze] = (params["ioc"], params["scf"], traj, dec_h, msg,
                             fmap, live, fut, iters, *cts)
         kws[freeze] = kw
-        first = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args[freeze], **kw)
-        second = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args[freeze], **kw)
+        first = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args[freeze], weights=wb,
+                                            **kw)
+        second = ioc_bwd.ioc_refine_bwd_cuda(*bwd_args[freeze], weights=wb,
+                                             **kw)
         flat = lambda o: [x for x in o[:4]] + [o[4][n] for n in sorted(o[4])] \
             + [o[5][h][n] for h in sorted(o[5]) for n in ("w", "b")] + [o[6]]
         same = all(torch.equal(x, y)
@@ -763,6 +769,8 @@ def training_phase(dev, smi, rng):
             repeats=3, iters=2)
     step_split("train_step", cfg, params, (xy, mask, ids),
                step_ms["train_step_ms"][0])
+    step_split("train_step social_freeze", cfg_fz, params, (xy, mask, ids),
+               step_ms["train_step_ms social_freeze"][0])
     kw = kws[False]
     t_fwd = time_ms(lambda: ioc_fused.ioc_refine_cuda(
         w, traj, dec_h, fmap, live, fut, collect_iters=True, **kw))
@@ -772,7 +780,8 @@ def training_phase(dev, smi, rng):
     t_bwd, t_bwd_p = {}, {}
     for freeze in (False, True):
         t_bwd[freeze] = time_ms(lambda: ioc_bwd.ioc_refine_bwd_cuda(
-            *bwd_args[freeze], **kws[freeze]), repeats=3, iters=2)
+            *bwd_args[freeze], weights=wb, **kws[freeze]), repeats=3,
+            iters=2)
         # the plain backward: autograd through the plain version, on a
         # graph recorded once
         outs, leaves = ioc_train_outputs(params, cfg, args, kernel=False,
@@ -918,6 +927,15 @@ def check_scene_pool(b, g, c, p, cd, rng, device):
     ref = scene_pool.bilinear_pool_plain(fm, pos)
     e_f = check_close(f"{tag} forward", got, ref,
                       **(POOL_BF16_TOL if bf else POOL_TOL))
+    if bf:
+        # both round the four weights to bf16 and add the four products in
+        # float32 in the same order: the same bits
+        same = torch.equal(got, ref)
+        print(f"  {tag} forward bitwise equal to the plain version = {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("the bf16 scene-pool forward is not "
+                                 "bitwise equal to its plain version")
     d_map, d_pos = scene_pool.scene_pool_bwd_cuda(fm, pos, gct)
     r_map, r_pos = scene_pool.bilinear_pool_plain_bwd(fm, pos, gct)
     e_m = check_close(f"{tag} d_map", d_map, r_map,
@@ -949,8 +967,14 @@ def unfused_phase(dev, smi, rng, params):
 
     # -- 7a. float32, small shapes ------------------------------------------
     print("scene-pool kernels, float32, small shapes:", flush=True)
-    for b, g, c, p in ((2, 8, 8, 700), (2, 8, 32, 700), (3, 32, 32, 1000)):
+    for b, g, c, p in ((2, 8, 8, 700), (2, 8, 32, 700), (3, 32, 32, 1000),
+                       (2, 8, 12, 701), (2, 8, 6, 701)):
         check_scene_pool(b, g, c, p, torch.float32, rng, dev)
+    # bfloat16 at small shapes: C = 8 and 32 take the forward's vector path
+    # (P not a multiple of its points per warp), C = 12 its channel loop
+    print("scene-pool kernels, bfloat16, small shapes:", flush=True)
+    for b, g, c, p in ((2, 8, 8, 701), (2, 8, 32, 701), (2, 8, 12, 701)):
+        check_scene_pool(b, g, c, p, torch.bfloat16, rng, dev)
     scfg = small_cfg(use_social=False)
     sp = make_params(scfg, dev)
     r_s = max(scfg.num_refine, 1) + 1            # pooling calls per forward
@@ -1028,6 +1052,15 @@ def unfused_phase(dev, smi, rng, params):
     pos = torch.as_tensor(rng.uniform(0.15, 0.85, (b, p, 2)).astype(
         np.float32), device=dev)
     t_f = time_ms(lambda: scene_pool.scene_pool_fwd_cuda(fm, pos))
+    # the forward's other kernel, the channel loop, at a C whose rows are
+    # not whole 16-byte pieces
+    fm12 = fm[..., :12].contiguous()
+    if scene_pool.fwd_vector_width(12, fm12.dtype, fm12.data_ptr(),
+                                   pos.data_ptr(), 0) != 0:
+        raise AssertionError("C = 12 in bfloat16 should take the channel "
+                             "loop")
+    t_f12 = time_ms(lambda: scene_pool.scene_pool_fwd_cuda(fm12, pos))
+    t_f12_p = time_ms(lambda: scene_pool.bilinear_pool_plain(fm12, pos))
     t_f_p = time_ms(lambda: scene_pool.bilinear_pool_plain(fm, pos))
     t_b = time_ms(lambda: scene_pool.scene_pool_bwd_cuda(fm, pos, gct))
     t_b_p = time_ms(lambda: scene_pool.bilinear_pool_plain_bwd(fm, pos,
@@ -1048,6 +1081,8 @@ def unfused_phase(dev, smi, rng, params):
           f"uniform in [0.15, 0.85]:", flush=True)
     print(f"scene_pool_fwd ms kernel {t_f:.4f} plain {t_f_p:.4f} grid_sample "
           f"{t_f_lib:.4f}", flush=True)
+    print(f"scene_pool_fwd at C=12 (channel loop) ms kernel {t_f12:.4f} "
+          f"plain {t_f12_p:.4f}", flush=True)
     print(f"scene_pool_bwd ms kernel {t_b:.4f} plain {t_b_p:.4f} "
           f"grid_sample backward {t_b_lib:.4f}; kernel on the check's "
           f"inputs (a quarter on the borders) {t_b_edge:.4f}", flush=True)

@@ -18,19 +18,32 @@
 // holds them. g is in the map's dtype; products accumulate in float32, the
 // outputs are written in the map's dtype (d_pos in float32).
 //
-// What bounds it on this card: bytes. Per point the forward reads 8 bytes
-// of position and 4 corner rows of the map (which stay in L2: the whole
+// What bounds it on this card: bytes, and for the forward how many of them
+// each thread keeps in flight. Per point the forward reads 8 bytes of
+// position and 4 corner rows of the map (which stay in L2: the whole
 // flagship map is 4 MB) and writes one row of C channels; at the flagship
-// shape (B=64, P=14,400, G=32, C=32, bf16) that is ~71 MB, ~0.021 ms at
-// 3.35 TB/s. The backward reads the positions, the cotangent rows and the
-// map and writes d_fmap and d_pos, ~86 MB. No product is needed: the TPU
-// kernel turned the gather into a (512, G^2) 4-hot matrix product because
-// a gather is slow on the TPU; here it is a gather.
+// shape (B=64, P=14,400, G=32, C=32, bf16) that is ~71 MB. The backward
+// reads the positions, the cotangent rows and the map and writes d_fmap and
+// d_pos, ~86 MB. No product is needed: the TPU kernel turned the gather into
+// a (512, G^2) 4-hot matrix product because a gather is slow on the TPU;
+// here it is a gather.
 //
 // What the design does:
-// * Forward and d_pos: one warp per point, its lanes over the channels
-//   (C = 32: one lane per channel, coalesced corner rows; other C loop).
-//   d_pos is a warp reduction over the channels.
+// * Forward, vector path (a row of C channels is a whole number of 16-byte
+//   pieces: C % 8 == 0 in bf16, C % 4 == 0 in float32, 16-byte aligned
+//   tensors; the wrapper decides): a thread owns one 16-byte piece of one
+//   point's row, so C / 8 (or C / 4) neighbouring threads share a point and
+//   a warp covers several points (8 at C = 32 bf16). The threads of a point
+//   read its position as one 8-byte broadcast load, a warp's positions being
+//   one contiguous run; each thread then sends its four 16-byte corner
+//   loads together through the read-only path, accumulates its channels in
+//   float32 (the four fused multiply-adds per channel in corner order, as
+//   the channel loop does, so the result is bitwise the same) and stores 16
+//   bytes. The launch is a grid-stride loop over a bounded number of blocks
+//   per SM.
+// * Forward, channel loop (any other C or alignment), and d_pos: one warp
+//   per point, its lanes over the channels. d_pos is a warp reduction over
+//   the channels.
 // * d_fmap is a scatter of every point into 4 nodes, and points share
 //   nodes heavily. It is deterministic, with no atomics: a block owns a
 //   band of grid rows of one batch row, accumulates it in shared memory
@@ -90,6 +103,84 @@ __global__ void __launch_bounds__(kPoolThreads) scene_pool_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc = fmaf(w[e], to_f(r[e][c]), acc);
     out[i * C + c] = from_f<CD>(acc);
+  }
+}
+
+// 16 bytes of a row as float32: 4 float32 or 8 bf16 channels (a bf16 value
+// widens exactly).
+template <typename CD>
+constexpr int kVec = 16 / (int)sizeof(CD);
+
+template <typename CD>
+__device__ __forceinline__ void load_row16(const CD* p, float (&f)[kVec<CD>]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (sizeof(CD) == 4) {
+      f[q] = __uint_as_float(u[q]);
+    } else {
+      f[2 * q] = __uint_as_float(u[q] << 16);
+      f[2 * q + 1] = __uint_as_float(u[q] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename CD>
+__device__ __forceinline__ void store_row16(CD* p,
+                                            const float (&f)[kVec<CD>]) {
+  uint4 v;
+  if constexpr (sizeof(CD) == 4) {
+    v = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                   __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+    v = make_uint4(pack_bf16(make_float2(f[0], f[1])),
+                   pack_bf16(make_float2(f[2], f[3])),
+                   pack_bf16(make_float2(f[4], f[5])),
+                   pack_bf16(make_float2(f[6], f[7])));
+  }
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// Blocks per SM of the vector path's grid-stride launch: enough warps to
+// cover the corner loads' latency, few enough that a block's share of the
+// map stays hot in L2 while it strides (on an H100, 8 and 16 timed alike,
+// 2, 4, 32 and one block per 256 pieces slower).
+constexpr int kVecBlocksPerSm = 8;
+
+// The forward's vector path: thread slot s owns channels [c0, c0 + kVec) of
+// point s / (C / kVec). Idx is 32-bit where the slot count allows (its
+// divisions are cheaper).
+template <typename CD, typename Idx>
+__global__ void __launch_bounds__(kPoolThreads) scene_pool_fwd_vec_kernel(
+    const CD* __restrict__ fmap, const float* __restrict__ pos,
+    CD* __restrict__ out, Idx slots, Idx P, int G, int C) {
+  constexpr int V = kVec<CD>;
+  const Idx lpp = (Idx)(C / V);
+  const Idx stride = (Idx)gridDim.x * kPoolThreads;
+  for (Idx s = (Idx)blockIdx.x * kPoolThreads + threadIdx.x; s < slots;
+       s += stride) {
+    const Idx i = s / lpp;
+    const int c0 = (int)(s - i * lpp) * V;
+    const float2 xy = __ldg(reinterpret_cast<const float2*>(pos) + i);
+    const Cell q = cell_of(xy.x, xy.y, G);
+    const float w[4] = {rnd<CD>((1.f - q.fx) * (1.f - q.fy)),
+                        rnd<CD>(q.fx * (1.f - q.fy)),
+                        rnd<CD>((1.f - q.fx) * q.fy), rnd<CD>(q.fx * q.fy)};
+    const CD* fm = fmap + (size_t)(i / P) * G * G * C + c0;
+    float f[4][V];
+    load_row16<CD>(fm + (q.y0 * G + q.x0) * C, f[0]);
+    load_row16<CD>(fm + (q.y0 * G + q.x1) * C, f[1]);
+    load_row16<CD>(fm + (q.y1 * G + q.x0) * C, f[2]);
+    load_row16<CD>(fm + (q.y1 * G + q.x1) * C, f[3]);
+    float acc[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      acc[c] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c] = fmaf(w[e], f[e][c], acc[c]);
+    }
+    store_row16<CD>(out + (size_t)i * C + c0, acc);
   }
 }
 
@@ -232,12 +323,43 @@ unsigned point_blocks(int B, int P) {
   return (unsigned)((warps + per - 1) / per);
 }
 
+// vec: the elements per 16-byte piece if the wrapper chose the vector path
+// (C a multiple of it, 16-byte aligned tensors), 0 for the channel loop.
 template <typename CD>
 int launch_fwd(const void* fmap, const void* pos, void* out, int B, int P,
-               int G, int C, cudaStream_t stream) {
-  if ((long)B * P == 0) return 0;
-  scene_pool_fwd_kernel<CD><<<point_blocks(B, P), kPoolThreads, 0, stream>>>(
-      (const CD*)fmap, (const float*)pos, (CD*)out, B, P, G, C);
+               int G, int C, int vec, cudaStream_t stream) {
+  const long npts = (long)B * P;
+  if (vec != 0 && (vec != kVec<CD> || C % vec != 0
+                   || (((uintptr_t)fmap | (uintptr_t)out) & 15) != 0
+                   || ((uintptr_t)pos & 7) != 0))
+    return cudaErrorInvalidValue;
+  if (npts == 0) return 0;
+  if (vec == 0) {
+    scene_pool_fwd_kernel<CD><<<point_blocks(B, P), kPoolThreads, 0,
+                                stream>>>((const CD*)fmap, (const float*)pos,
+                                          (CD*)out, B, P, G, C);
+    return (int)cudaGetLastError();
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long slots = npts * (C / vec);
+  const long want = (slots + kPoolThreads - 1) / kPoolThreads;
+  const long cap = (long)sms * kVecBlocksPerSm;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  if (slots + (long)blocks * kPoolThreads < (1L << 32))
+    scene_pool_fwd_vec_kernel<CD, uint32_t>
+        <<<blocks, kPoolThreads, 0, stream>>>(
+            (const CD*)fmap, (const float*)pos, (CD*)out, (uint32_t)slots,
+            (uint32_t)P, G, C);
+  else
+    scene_pool_fwd_vec_kernel<CD, uint64_t>
+        <<<blocks, kPoolThreads, 0, stream>>>(
+            (const CD*)fmap, (const float*)pos, (CD*)out, (uint64_t)slots,
+            (uint64_t)P, G, C);
   return (int)cudaGetLastError();
 }
 
@@ -270,14 +392,19 @@ int launch_bwd(const void* fmap, const void* pos, const void* g,
 }  // namespace desire
 
 // fmap (B, G, G, C) CD, pos (B, P, 2) float32 -> out (B, P, C) CD. CD is
-// bfloat16 when is_bf16, else float32. Returns cudaGetLastError().
+// bfloat16 when is_bf16, else float32. vec: 8 (bfloat16) or 4 (float32) for
+// the vector path, which needs C % vec == 0 and 16-byte aligned fmap and
+// out (pos 8-byte aligned), else 0 for the channel loop. Returns
+// cudaGetLastError().
 extern "C" int scene_pool_fwd_launch(int is_bf16, const void* fmap,
                                      const void* pos, void* out, int B,
-                                     int P, int G, int C, void* stream) {
+                                     int P, int G, int C, int vec,
+                                     void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return desire::launch_fwd<__nv_bfloat16>(fmap, pos, out, B, P, G, C, s);
-  return desire::launch_fwd<float>(fmap, pos, out, B, P, G, C, s);
+    return desire::launch_fwd<__nv_bfloat16>(fmap, pos, out, B, P, G, C, vec,
+                                             s);
+  return desire::launch_fwd<float>(fmap, pos, out, B, P, G, C, vec, s);
 }
 
 // fmap (B, G, G, C) CD, pos (B, P, 2) float32, g (B, P, C) CD -> d_fmap

@@ -123,7 +123,7 @@ def library():
     lib.nll_fwd_launch.restype = _I
     lib.nll_bwd_launch.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.nll_bwd_launch.restype = _I
-    lib.scene_pool_fwd_launch.argtypes = [_I] + [_P] * 3 + [_I] * 4 + [_P]
+    lib.scene_pool_fwd_launch.argtypes = [_I] + [_P] * 3 + [_I] * 5 + [_P]
     lib.scene_pool_fwd_launch.restype = _I
     lib.scene_pool_bwd_launch.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_P]
     lib.scene_pool_bwd_launch.restype = _I

@@ -58,13 +58,62 @@ def social_messages(p_scf, dec_h):
         p_scf["soc_msg"]["b"].to(dec_h.dtype)
 
 
+# order of the packed weights among the kernel's inputs
+_PACK_ORDER = ("wi", "wiT", "wh", "whT", "heads_c", "wiv", "bi", "bh",
+               "heads_w", "heads_b", "ltau")
+
+
+def pack_ioc_bwd(p_ioc, p_scf, compute_dtype, device):
+    """The backward kernel's weight operands, built once per training
+    forward (not per launch): the score GRU's input and hidden matrices in
+    the compute dtype, each also transposed (the kernel reads a product's
+    second operand row by row: wi (F, 3d) and wiT (3d, F) with F = 2 + C +
+    2d rows [vel | scene | social | dec_h]; wh (d, 3d) and whT (3d, d)),
+    the heads [score | gate | dx | dy] (d, 4) in the compute dtype and in
+    float32, and in float32 the velocity rows of wi (2, 3d), the biases,
+    the heads' bias (4) and soc_logtau (1). All detached and contiguous."""
+    gp = p_ioc["gru"][0]
+
+    def wc(x):
+        return x.detach().to(device=device, dtype=compute_dtype).contiguous()
+
+    def wf(x):
+        return x.detach().to(device=device, dtype=_F32).contiguous()
+
+    heads_w = torch.cat([p_ioc["score"]["w"], p_ioc["gate"]["w"],
+                         p_ioc["delta"]["w"]], dim=-1)
+    heads_b = torch.cat([p_ioc["score"]["b"], p_ioc["gate"]["b"],
+                         p_ioc["delta"]["b"]])
+    wi, wh = gp["wi"], gp["wh"]
+    return {"wi": wc(wi), "wiT": wc(wi.t()), "wh": wc(wh), "whT": wc(wh.t()),
+            "heads_c": wc(heads_w), "wiv": wf(wi[:2]), "bi": wf(gp["bi"]),
+            "bh": wf(gp["bh"]), "heads_w": wf(heads_w),
+            "heads_b": wf(heads_b),
+            "ltau": wf(p_scf["soc_logtau"].reshape(1))}
+
+
+def bwd_workspace_words(b, a, k, t, d, c, r, social_freeze):
+    """Float32 words of the backward kernel's device-memory workspace, B * K
+    blocks of: the GRU gates r, z, n and the hidden n-gate preactivation
+    (T, A, 4d), the GRU states (T, A, d), the scene (T, A, C) and social
+    (T, A, d) blocks, the heads' cotangents (T, A, 4) and every pass's
+    scene cotangents (R + 1, T, A, C); under social_freeze also the two
+    social-cotangent buckets, (T, A, d) each (``bwd_ws_words`` of the
+    kernel source)."""
+    per_block = (t * a * (6 * d + c + 4) + (r + 1) * t * a * c
+                 + (2 * t * a * d if social_freeze else 0))
+    return b * k * per_block
+
+
 def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
                         fut_mask, iters, d_refined, d_scores, d_iters, *,
-                        num_refine, delta_scale, social_freeze=False):
+                        num_refine, delta_scale, social_freeze=False,
+                        weights=None):
     """Launch the backward kernel (``csrc/ioc_refine_bwd.cu``) on CUDA
     tensors. Shapes as :func:`ioc_fused.ioc_refine_cuda`; iters is its
     collect_iters output (R, B, A, K, T, 2), made with the same
-    social_freeze, and the cotangents are float32.
+    social_freeze, and the cotangents are float32. weights:
+    :func:`pack_ioc_bwd` of the same parameters, if the caller has it.
 
     Returns (d_traj f32, d_dec, d_msg (both float32), d_feat_map (B, G, G,
     C) float32, the GRU gradients {wi, wh, bi, bh}, the head gradients
@@ -95,22 +144,11 @@ def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
     if tuple(gp["wi"].shape) != (f, 3 * d):
         raise ValueError(f"gru wi {tuple(gp['wi'].shape)}, expected "
                          f"{(f, 3 * d)}")
-
-    def wc(x):
-        return x.detach().to(device=dev, dtype=cd).contiguous()
-
-    def wf(x):
-        return x.detach().to(device=dev, dtype=_F32).contiguous()
-
-    heads_w = torch.cat([p_ioc["score"]["w"], p_ioc["gate"]["w"],
-                         p_ioc["delta"]["w"]], dim=-1)
-    heads_b = torch.cat([p_ioc["score"]["b"], p_ioc["gate"]["b"],
-                         p_ioc["delta"]["b"]])
-    wi, wh = gp["wi"], gp["wh"]
+    w = weights if weights is not None else pack_ioc_bwd(p_ioc, p_scf, cd,
+                                                         dev)
+    _build.check(w["wiT"], "packed wiT", (3 * d, f), cd, dev)
     ins = [traj, iters, dec_h, msg, feat_map, live, fut_mask,
-           wc(wi), wc(wi.t()), wc(wh), wc(wh.t()), wc(heads_w),
-           wf(wi[:2]), wf(gp["bi"]), wf(gp["bh"]), wf(heads_w), wf(heads_b),
-           wf(p_scf["soc_logtau"].reshape(1)), d_refined, d_scores, d_iters]
+           *(w[name] for name in _PACK_ORDER), d_refined, d_scores, d_iters]
     nb = b * k
     z = lambda *shape: torch.empty(shape, dtype=_F32, device=dev)
     outs = [z(b, a, k, t, 2), z(b, a, k, t, d), z(b, a, k, t, d),
@@ -118,7 +156,10 @@ def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
             z(nb, 3 * d), z(nb, d, 4), z(nb, 4), z(nb)]
     lib = _build.library()
     freeze = int(bool(social_freeze))
-    ws = z(int(lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r, freeze)))
+    words = bwd_workspace_words(b, a, k, t, d, c, r, freeze)
+    if words != lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r, freeze):
+        raise RuntimeError("the workspace size disagrees with the kernel's")
+    ws = z(words)
     ptr_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     ptr_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
     rc = lib.ioc_refine_bwd_launch(
@@ -158,6 +199,9 @@ class _TrainableIoc(torch.autograd.Function):
         ctx.save_for_backward(traj, dec_h, feat_map, live, fut_mask, iters,
                               msg_w, msg_b, ltau, *leaves)
         ctx.kw = kw
+        # the backward's weight operands, packed here once: the parameters
+        # cannot change between this forward and its backward
+        ctx.bwd_weights = pack_ioc_bwd(p_ioc, p_scf, dec_h.dtype, traj.device)
         # scores reach the loss in the compute dtype, as the plain path
         # gives them (ioc_fused.py:979 of the JAX package)
         return refined, scores.to(dec_h.dtype), iters
@@ -177,7 +221,7 @@ class _TrainableIoc(torch.autograd.Function):
          d_ltau) = ioc_refine_bwd_cuda(
             p_ioc, p_scf, traj, dec_h, msg, feat_map, live, fut_mask, iters,
             ct(d_refined, traj.shape), ct(d_scores, traj.shape[:3]),
-            ct(d_iters, iters.shape), **ctx.kw)
+            ct(d_iters, iters.shape), weights=ctx.bwd_weights, **ctx.kw)
         cd = dec_h.dtype
         # chain msg = dec_h Wmsg + bmsg into dec_h and the message weights
         d_msg = d_msg.to(cd).float()

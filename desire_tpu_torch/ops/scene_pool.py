@@ -9,8 +9,10 @@ cotangent rounded to the map's dtype, float32 sums, outputs in the map's
 dtype (d_pos in float32). d_pos is zero outside [0, 1] and kept at both
 ends.
 
-On CUDA tensors the forward is ``csrc/scene_pool.cu scene_pool_fwd_kernel``
-and the gradient ``scene_pool_dmap_kernel`` (deterministic, no atomics)
+On CUDA tensors the forward is ``csrc/scene_pool.cu
+scene_pool_fwd_vec_kernel`` (16-byte pieces of a row per thread) or, for
+other channel counts, ``scene_pool_fwd_kernel``, and the gradient
+``scene_pool_dmap_kernel`` (deterministic, no atomics)
 plus ``scene_pool_dpos_kernel``; on CPU tensors the plain versions run.
 ``models/scf.py`` keeps the layer-by-layer semantics of the JAX package's
 XLA path (weights not rounded) for ``cfg.use_pallas=False``.
@@ -94,17 +96,34 @@ def _shapes(feat_map, pos):
     return b, p, g, c
 
 
+def fwd_vector_width(c, dtype, map_ptr, pos_ptr, out_ptr):
+    """Which forward kernel takes a map of C channels of this dtype at these
+    addresses: the channels a thread moves as one 16-byte piece (8 in
+    bfloat16, 4 in float32) for the vector path, which needs rows of whole
+    pieces, the map and the result 16-byte aligned and the positions 8-byte
+    aligned; else 0, the channel loop (one warp per point)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if (c % vec == 0 and map_ptr % 16 == 0 and out_ptr % 16 == 0
+            and pos_ptr % 8 == 0):
+        return vec
+    return 0
+
+
 def scene_pool_fwd_cuda(feat_map, pos):
-    """Launch ``scene_pool_fwd_kernel`` on contiguous CUDA tensors:
-    feat_map (B, G, G, C) float32 or bfloat16, pos (B, P, 2) float32.
-    Returns (B, P, C) in the map's dtype."""
+    """Launch the forward kernel on contiguous CUDA tensors: feat_map
+    (B, G, G, C) float32 or bfloat16, pos (B, P, 2) float32. Returns
+    (B, P, C) in the map's dtype. ``scene_pool_fwd_vec_kernel`` where
+    :func:`fwd_vector_width` allows it, else ``scene_pool_fwd_kernel``; both
+    give the same bits."""
     if not feat_map.is_cuda:
         raise ValueError("scene_pool_fwd_cuda needs CUDA tensors")
     b, p, g, c = _shapes(feat_map, pos)
     out = torch.empty((b, p, c), dtype=feat_map.dtype, device=feat_map.device)
+    vec = fwd_vector_width(c, feat_map.dtype, feat_map.data_ptr(),
+                           pos.data_ptr(), out.data_ptr())
     rc = _build.library().scene_pool_fwd_launch(
         int(feat_map.dtype == torch.bfloat16), feat_map.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, p, g, c,
+        pos.data_ptr(), out.data_ptr(), b, p, g, c, vec,
         ctypes.c_void_p(torch.cuda.current_stream(
             feat_map.device).cuda_stream))
     if rc != 0:

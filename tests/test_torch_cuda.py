@@ -132,11 +132,12 @@ def test_ioc_kernel_matches_plain(cuda_device, dtype, c, a, social_freeze):
         assert np.abs(g_sc - r_sc).mean() < 5e-3
 
 
-def _ioc_train_case(cuda_device, dtype, c, a, seed=1):
-    cfg = _cfg(scene_channels=c, compute_dtype=dtype, max_num_obj=a)
+def _ioc_train_case(cuda_device, dtype, c, a, d=16, seed=1):
+    cfg = _cfg(scene_channels=c, compute_dtype=dtype, max_num_obj=a,
+               d_dim=d)
     cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     p = _params(cfg, cuda_device)
-    b, k, t, d = 2, 3, 6, 16
+    b, k, t = 2, 3, 6
     rng = np.random.default_rng(seed)
     f = lambda x, dt=torch.float32: torch.as_tensor(
         np.asarray(x, np.float32), device=cuda_device).to(dt)
@@ -180,19 +181,26 @@ def _ioc_train_grads(p, args, wts, kernel, social_freeze=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,c,a,social_freeze", [
-    ("float32", 8, 5, False), ("bfloat16", 16, 5, False),
-    ("bfloat16", 8, 70, False), ("float32", 8, 5, True),
-    ("bfloat16", 16, 5, True), ("bfloat16", 8, 70, True)])
-def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a,
+@pytest.mark.parametrize("dtype,c,a,d,social_freeze", [
+    ("float32", 8, 5, 16, False), ("bfloat16", 16, 5, 16, False),
+    ("bfloat16", 8, 70, 16, False), ("float32", 8, 5, 16, True),
+    ("bfloat16", 16, 5, 16, True), ("bfloat16", 8, 70, 16, True),
+    ("bfloat16", 32, 60, 48, False), ("bfloat16", 32, 60, 48, True),
+    ("bfloat16", 16, 20, 16, False), ("bfloat16", 16, 20, 16, True),
+    ("bfloat16", 32, 5, 48, False), ("float32", 32, 20, 48, False),
+    ("float32", 32, 20, 48, True)])
+def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a, d,
                                              social_freeze):
     """The training forward (collect_iters) and the backward kernel against
     autograd through the plain version, every input and parameter leaf,
     with and without social_freeze (its deferred attention adjoint).
+    bf16 with d and C multiples of 16 takes the backward's tensor-core
+    variant (operand tiles padded to 16 agent rows: A = 5, 20 and 60 are
+    not multiples of 16), the others its CUDA-core variant.
     f32: the JAX kernel suite's gradient tolerances. bf16: relative L2
     error of each leaf (the kernel keeps cotangents in float32 where
     autograd rounds them to bf16 at every cast)."""
-    cfg, p, args, wts = _ioc_train_case(cuda_device, dtype, c, a)
+    cfg, p, args, wts = _ioc_train_case(cuda_device, dtype, c, a, d)
     before = {n: _build.LAUNCHES[n] for n in ("ioc_refine_train",
                                               "ioc_refine_bwd")}
     got = _ioc_train_grads(p, args, wts, kernel=True,
@@ -220,15 +228,32 @@ def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,a,d", [(16, 5, 16), (32, 60, 48), (8, 5, 16)])
 @pytest.mark.parametrize("social_freeze", [False, True])
-def test_ioc_backward_kernel_is_deterministic(cuda_device, social_freeze):
-    """Two runs on the same inputs give bitwise-equal gradients."""
-    cfg, p, args, wts = _ioc_train_case(cuda_device, "bfloat16", 16, 5)
+def test_ioc_backward_kernel_is_deterministic(cuda_device, social_freeze, c,
+                                              a, d):
+    """Two runs on the same inputs give bitwise-equal gradients (the
+    tensor-core variant at two sizes, and the CUDA-core one)."""
+    cfg, p, args, wts = _ioc_train_case(cuda_device, "bfloat16", c, a, d)
     first = _ioc_train_grads(p, args, wts, kernel=True,
                              social_freeze=social_freeze)
     second = _ioc_train_grads(p, args, wts, kernel=True,
                               social_freeze=social_freeze)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 5, 3, 6, 16, 8, 2), (64, 60, 20, 12, 48, 32, 4),
+    (3, 20, 7, 12, 32, 16, 1)])
+@pytest.mark.parametrize("social_freeze", [False, True])
+def test_ioc_backward_workspace_size(cuda_device, shape, social_freeze):
+    """The workspace the wrapper allocates is what the kernel source
+    computes for itself."""
+    from desire_tpu_torch.ops import ioc_bwd
+    want = _build.library().ioc_refine_bwd_ws_words(*shape,
+                                                    int(social_freeze))
+    assert ioc_bwd.bwd_workspace_words(*shape, social_freeze) == want
 
 
 @pytest.mark.cuda
@@ -286,11 +311,14 @@ def _scene_pool_case(device, b, g, c, p, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,c,p", [
     ("float32", 32, 700), ("float32", 8, 700), ("bfloat16", 32, 700),
-    ("bfloat16", 8, 1000), ("bfloat16", 32, 14400)])
+    ("bfloat16", 8, 1000), ("bfloat16", 32, 14400), ("bfloat16", 12, 701),
+    ("float32", 12, 701), ("bfloat16", 32, 701), ("float32", 6, 33)])
 def test_scene_pool_kernels_match_plain(cuda_device, dtype, c, p):
     """Forward, d_map and d_pos against the plain versions on the card (P
-    not a multiple of the kernels' chunk, C = 8 loops over fewer lanes),
-    and d_map bitwise equal in two runs. f32: the same products summed in
+    not a multiple of the kernels' chunk nor of the forward's points per
+    warp; C = 32 and 8 take the forward's vector path in both dtypes, C =
+    12 only in float32, C = 6 the channel loop in both), and d_map bitwise
+    equal in two runs. f32: the same products summed in
     another order (d_map sums up to hundreds of points per node; d_pos sums
     C terms of up to ~(G - 1) * 4 each, whose float32 rounding reaches
     ~1e-4 where they cancel). bf16: a result rounded to bf16 may land one
@@ -321,3 +349,46 @@ def test_scene_pool_kernels_match_plain(cuda_device, dtype, c, p):
         .abs().max()) == 0.0
     again = scene_pool.scene_pool_bwd_cuda(fm, pos, g)
     assert torch.equal(again[0], d_map) and torch.equal(again[1], d_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c", [("bfloat16", 32), ("bfloat16", 8),
+                                     ("float32", 32), ("float32", 12)])
+def test_scene_pool_forward_paths_give_the_same_bits(cuda_device, dtype, c):
+    """The forward's vector path and its channel loop, asked for directly,
+    agree bitwise with each other (the same four fused multiply-adds per
+    channel, in corner order) and, in bf16, with the plain version."""
+    import ctypes
+    from desire_tpu_torch.ops import scene_pool
+    fm, pos, _ = _scene_pool_case(cuda_device, 3, 32, c, 701, dtype)
+    lib = _build.library()
+    outs = []
+    for want_vec in (True, False):
+        out = torch.empty((3, 701, c), dtype=fm.dtype, device=cuda_device)
+        vec = scene_pool.fwd_vector_width(c, fm.dtype, fm.data_ptr(),
+                                          pos.data_ptr(), out.data_ptr())
+        assert vec == (8 if dtype == "bfloat16" else 4)
+        rc = lib.scene_pool_fwd_launch(
+            int(dtype == "bfloat16"), fm.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), 3, 701, 32, c, vec if want_vec else 0,
+            ctypes.c_void_p(torch.cuda.current_stream(
+                cuda_device).cuda_stream))
+        assert rc == 0
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    if dtype == "bfloat16":
+        assert torch.equal(outs[0], scene_pool.bilinear_pool_plain(fm, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,p", [(2, 0), (0, 5)])
+def test_scene_pool_forward_of_no_points(cuda_device, dtype, b, p):
+    """B * P = 0: an empty result, no launch fault."""
+    from desire_tpu_torch.ops import scene_pool
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    out = scene_pool.scene_pool_fwd_cuda(
+        torch.zeros((b, 8, 8, 32), dtype=cd, device=cuda_device),
+        torch.zeros((b, p, 2), device=cuda_device))
+    torch.cuda.synchronize()
+    assert out.shape == (b, p, 32) and out.dtype == cd

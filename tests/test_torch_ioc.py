@@ -19,6 +19,7 @@ from desire_tpu.models import scf as jscf
 from desire_tpu.ops.ioc_fused import ioc_refine_fused
 from desire_tpu_torch.models import ioc as tioc
 from desire_tpu_torch.models import scf as tscf
+from desire_tpu_torch.ops import ioc_bwd
 from desire_tpu_torch.ops import ioc_fused as tops
 from desire_tpu_torch.ops import ioc_refine_train
 from desire_tpu_torch.params import from_jax, to_numpy
@@ -189,3 +190,52 @@ def test_ioc_gradients_match_jax(path, live_mode, social_freeze):
         g = np.zeros(r.shape, np.float32) if g is None else g.numpy()
         np.testing.assert_allclose(g, np.asarray(r), err_msg=str(kp),
                                    **GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_weight_pack_layouts(dtype):
+    """pack_ioc_bwd against the unpacked weights: the GRU matrices in the
+    compute dtype as they are and transposed (a product's second operand is
+    read row by row), contiguous; the heads in the order [score | gate | dx
+    | dy]; the float32 velocity rows, biases and soc_logtau."""
+    cfg, p_ioc, p_scf, _ = _env("mixed", False)
+    pt, st = from_jax(p_ioc), from_jax(p_scf)
+    w = ioc_bwd.pack_ioc_bwd(pt, st, dtype, torch.device("cpu"))
+    assert tuple(w) == ioc_bwd._PACK_ORDER
+    gp = pt["gru"][0]
+    d, f = cfg.d_dim, 2 + cfg.scene_channels + 2 * cfg.d_dim
+    assert w["wi"].shape == (f, 3 * d) and w["wiT"].shape == (3 * d, f)
+    assert w["wh"].shape == (d, 3 * d) and w["whT"].shape == (3 * d, d)
+    for name, ref in (("wi", gp["wi"]), ("wiT", gp["wi"].t()),
+                      ("wh", gp["wh"]), ("whT", gp["wh"].t())):
+        assert w[name].dtype == dtype and w[name].is_contiguous()
+        assert torch.equal(w[name], ref.to(dtype))
+    heads = torch.cat([pt["score"]["w"], pt["gate"]["w"], pt["delta"]["w"]],
+                      dim=-1)
+    assert torch.equal(w["heads_c"], heads.to(dtype))
+    assert w["heads_w"].dtype == torch.float32
+    assert torch.equal(w["heads_w"], heads)
+    assert torch.equal(w["heads_b"], torch.cat(
+        [pt["score"]["b"], pt["gate"]["b"], pt["delta"]["b"]]))
+    assert torch.equal(w["wiv"], gp["wi"][:2]) and w["wiv"].is_contiguous()
+    assert torch.equal(w["bi"], gp["bi"]) and torch.equal(w["bh"], gp["bh"])
+    assert w["ltau"].shape == (1,) and w["ltau"].dtype == torch.float32
+    assert not any(x.requires_grad for x in w.values())
+
+
+@pytest.mark.parametrize("b,a,k,t,d,c,r,freeze", [
+    (2, 5, 3, 6, 16, 8, 2, False), (2, 5, 3, 6, 16, 8, 2, True),
+    (64, 60, 20, 12, 48, 32, 4, False), (64, 60, 20, 12, 48, 32, 4, True)])
+def test_backward_workspace_words(b, a, k, t, d, c, r, freeze):
+    """The workspace the wrapper allocates, region by region as the kernel
+    source lays it out, for B * K blocks."""
+    regions = [t * a * 4 * d,            # gates r, z, n and the hidden n-gate
+               t * a * d,                # GRU states
+               t * a * c,                # scene blocks
+               t * a * d,                # social blocks
+               t * a * 4,                # the heads' cotangents
+               (r + 1) * t * a * c]      # scene cotangents of every pass
+    if freeze:
+        regions += [t * a * d] * 2       # the two social-cotangent buckets
+    assert ioc_bwd.bwd_workspace_words(b, a, k, t, d, c, r, freeze) \
+        == b * k * sum(regions)

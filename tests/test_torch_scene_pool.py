@@ -109,3 +109,37 @@ def test_plain_versions_and_wrappers():
         "scene_pool_bwd"] == 0
     with pytest.raises(ValueError, match="device"):
         ops.bilinear_pool(fm.to("meta"), pos.to("meta"))
+
+
+@pytest.mark.parametrize("c,dtype,ptrs,want", [
+    (32, torch.bfloat16, (4096, 256, 8192), 8),    # 4 pieces a row
+    (8, torch.bfloat16, (4096, 256, 8192), 8),     # one piece a row
+    (24, torch.bfloat16, (4096, 256, 8192), 8),    # 3 pieces: no power of 2
+    (12, torch.bfloat16, (4096, 256, 8192), 0),    # 24-byte rows
+    (12, torch.float32, (4096, 256, 8192), 4),     # 48-byte rows
+    (32, torch.float32, (4096, 264, 8192), 4),     # positions 8-byte aligned
+    (6, torch.float32, (4096, 256, 8192), 0),
+    (32, torch.bfloat16, (4104, 256, 8192), 0),    # map off a 16-byte line
+    (32, torch.bfloat16, (4096, 256, 8200), 0),    # result off a 16-byte line
+    (32, torch.bfloat16, (4096, 260, 8192), 0),    # positions off 8 bytes
+])
+def test_forward_vector_path_predicate(c, dtype, ptrs, want):
+    """Which forward kernel the wrapper asks for: 16-byte pieces of a row
+    (8 bf16 or 4 f32 channels a thread) only when a row is a whole number
+    of pieces and the tensors are aligned for 16-byte (positions: 8-byte)
+    accesses; else the channel loop."""
+    assert scene_pool.fwd_vector_width(c, dtype, *ptrs) == want
+
+
+def test_forward_vector_path_on_fresh_tensors():
+    """Freshly allocated contiguous tensors are aligned: the flagship map
+    (C = 32, bf16) takes the vector path, an odd-offset view does not."""
+    fm = torch.zeros((2, 8, 8, 32), dtype=torch.bfloat16)
+    pos = torch.zeros((2, 10, 2))
+    out = torch.empty((2, 10, 32), dtype=torch.bfloat16)
+    ptr = lambda t: t.data_ptr()
+    assert scene_pool.fwd_vector_width(32, fm.dtype, ptr(fm), ptr(pos),
+                                   ptr(out)) == 8
+    shifted = torch.zeros(2 * 8 * 8 * 32 + 1, dtype=torch.bfloat16)[1:]
+    assert scene_pool.fwd_vector_width(32, fm.dtype, ptr(shifted), ptr(pos),
+                                   ptr(out)) == 0
