@@ -9,8 +9,9 @@ Run from the root of a checkout. It imports no JAX. In order, it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of desire_tpu_torch/csrc with nvcc;
 3. holds each serving kernel against its plain PyTorch version on the card,
-   in float32 at a small shape and in bfloat16 at the flagship shape, and
-   the whole forward on the card against the plain forward on the CPU;
+   in float32 at a small shape and in bfloat16 at the flagship shape and at
+   K = 50 (B = 16), and the whole forward on the card against the plain
+   forward on the CPU;
 4. serves three requests of 64 synthetic windows through
    ``serve.Predictor`` at the flagship shape (B=64, A=60, K=20) and checks
    that both serving kernels were launched by them;
@@ -1281,7 +1282,25 @@ def main():
                                      **kw_i)
     ioc_err = max(check_bf16("refined", got[0], ref[0]),
                   check_bf16("scores", got[1], ref[1]))
-    del got, ref
+    # K = 50 lanes (B = 16): a K that the IOC kernel's lanes a block do not
+    # all divide, and 50 lanes of each agent in the sampler's row blocks
+    print("compare bfloat16, K = 50, B = 16:", flush=True)
+    cfg50 = flagship_cfg(num_samples=50)
+    packed50 = pack_kernel_weights(params, cfg50, dev)
+    args50 = sampler_inputs(cfg50, 16 * cfg.max_num_obj, rng, dev)
+    got = sgm_fused.sgm_sample_decode_cuda(packed50["sgm"], *args50,
+                                           cfg.pred_len)
+    ref = sgm_fused.sgm_sample_decode_plain(params["sgm"], *args50,
+                                            cfg.pred_len, **kw_s)
+    sgm_err = max(sgm_err, check_bf16("dec_h", got[0], ref[0]))
+    check_bf16("hx", got[1], ref[1])
+    args50 = ioc_inputs(cfg50, 16, rng, dev)
+    got = ioc_fused.ioc_refine_cuda(packed50["ioc"], *args50, **kw_i)
+    ref = ioc_fused.ioc_refine_plain(params["ioc"], params["scf"], *args50,
+                                     **kw_i)
+    ioc_err = max(ioc_err, check_bf16("refined", got[0], ref[0]),
+                  check_bf16("scores", got[1], ref[1]))
+    del got, ref, args50, packed50
 
     # -- 4. serve -------------------------------------------------------------
     print("serve: Predictor at B=64, A=60, K=20, bf16", flush=True)

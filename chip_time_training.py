@@ -3,9 +3,11 @@
 kernel (default and social_freeze) alone, and the training step with its
 split (loss forward, backward, optimizer and the rest), both at the flagship
 training shape (B=64, A=60, K=20, T=12, d=48, G=32, C=32, bf16), CUDA events,
-medians.
+medians. The steps are timed after WARMUP untimed steps of each
+configuration; then ``torch.profiler`` sums the card's busy time over 3
+default steps against their CUDA-event time (the card's idle share).
 
-    python3 chip_time_training.py [--root CHECKOUT]
+    python3 chip_time_training.py [--root CHECKOUT] [--label LABEL]
 
 --root names the checkout whose ``desire_tpu_torch`` and ``chip_smoke`` are
 timed (default: the one this file is in). To compare two versions on one
@@ -20,6 +22,26 @@ import sys
 
 import numpy as np
 import torch
+
+WARMUP = 3  # untimed steps of each configuration before any step is timed
+
+
+def busy_ms(fn, calls=3):
+    """(card busy ms, CUDA-event ms) per call of fn, over `calls` calls:
+    torch.profiler's device time of every kernel and copy against the
+    events' span."""
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / calls, start.elapsed_time(end) / calls
 
 
 def main():
@@ -71,17 +93,28 @@ def main():
               flush=True)
         del refined, scores, iters, cts
 
-    # the training step and its split
+    # the training step and its split, after a warm-up of both
+    # configurations
     batch = tuple(torch.as_tensor(x, device=dev)
                   for x in cs.synthetic_batch(cfg, rng))
+    runs = []
     for name, c in (("train_step", cfg),
                     ("train_step social_freeze",
                      cs.flagship_cfg(social_freeze=True))):
         state = create_train_state(c, params, seed=0)
         step_fn = make_train_step(c, steps_per_epoch=190)
-        ms = cs.time_ms(lambda: step_fn(state, *batch), repeats=5, iters=2)
+        runs.append((name, c, lambda s=state, f=step_fn: f(s, *batch)))
+    for _, _, step in runs:
+        for _ in range(WARMUP):
+            step()
+    torch.cuda.synchronize()
+    for name, c, step in runs:
+        ms = cs.time_ms(step, repeats=5, iters=2)
         print(f"{tag}: {name} ms {ms:.3f}", flush=True)
         cs.step_split(f"{tag}: {name}", c, params, batch, ms)
+    busy, wall = busy_ms(runs[0][2])
+    print(f"{tag}: train_step device busy ms {busy:.3f} of {wall:.3f} (idle "
+          f"share {1 - busy / wall:.3f})", flush=True)
     return 0
 
 

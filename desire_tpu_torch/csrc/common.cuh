@@ -36,6 +36,16 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// sigmoid and tanh from the fast exponential (ex2.approx) and division, a
+// few float32 ulp from the above: the element-wise math of the bf16
+// tensor-core paths, whose products round their operands to bf16 anyway
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
+}
+
 // Block-wide product with a per-output epilogue:
 //   epi(r, c, sum_k A[r * lda + k] * W[k * ldw + c])  for r < m, c < ncols.
 // A is float32 in shared memory, already rounded to CD, with its row count
@@ -66,7 +76,7 @@ __device__ __forceinline__ void block_mm(const float* A, int lda, int m,
   }
 }
 
-// Row stride (in elements, float32 or bf16) for a block_mma operand with
+// Row stride (in elements, float32 or bf16) for an mma operand tile with
 // kdim columns: stride % 16 == 8 spreads the 8 rows that a fragment load
 // reads at once over distinct shared-memory banks.
 __host__ __device__ __forceinline__ int mma_stride(int kdim) {
@@ -78,13 +88,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float2 v) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Two consecutive operand elements as one bf16x2 register: float32 pairs
-// are rounded to bf16 (round to nearest even), bf16 pairs loaded as is.
-__device__ __forceinline__ uint32_t load_pair(const float* p) {
-  return pack_bf16(*reinterpret_cast<const float2*>(p));
-}
+// Two consecutive bf16 operand elements as one bf16x2 register.
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// a bf16 pair (low half first) widened, exactly, to float32
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
@@ -98,52 +110,62 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Block-wide tensor-core product of mtiles * 16 rows, bf16 operands and
-// float32 accumulation (mma.sync m16n8k16):
-//   epi(r, c, sum_k A[r * lda + k] * WT[c * ldwt + k])
-// A is in shared memory, float32 (rounded to bf16 as it is loaded) or bf16,
-// lda even (best mma_stride(kdim)); WT is the weight matrix TRANSPOSED,
-// (ncols, kdim) bf16 with an even row stride ldwt, in shared or device
-// memory. kdim % 16 == 0, ncols % 8 == 0, mtiles % MT == 0. A warp's work
-// item is one 8-column tile for MT row tiles: a larger MT reuses each
-// weight fragment more, a smaller one spreads small products over more
-// warps.
-template <int MT, typename AT, typename Epi>
-__device__ __forceinline__ void block_mma(const AT* A, int lda, int mtiles,
-                                          int kdim, const __nv_bfloat16* WT,
-                                          int ldwt, int ncols, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int ctiles = ncols / 8;
-  for (int item = warp; item < ctiles * (mtiles / MT);
-       item += blockDim.x / 32) {
-    const int c0 = (item % ctiles) * 8, r0 = (item / ctiles) * MT * 16;
-    float acc[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
-    const __nv_bfloat16* b = WT + (size_t)(c0 + gid) * ldwt + tig * 2;
-    for (int k0 = 0; k0 < kdim; k0 += 16) {
-      const uint32_t b0 = load_pair(b + k0);
-      const uint32_t b1 = load_pair(b + k0 + 8);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const AT* lo = A + (r0 + m * 16 + gid) * lda + k0 + tig * 2;
-        const AT* hi = lo + 8 * lda;
-        mma_bf16(acc[m], load_pair(lo), load_pair(hi), load_pair(lo + 8),
-                 load_pair(hi + 8), b0, b1);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int r = r0 + m * 16 + gid, c = c0 + tig * 2;
-      epi(r, c, acc[m][0]);
-      epi(r, c + 1, acc[m][1]);
-      epi(r + 8, c, acc[m][2]);
-      epi(r + 8, c + 1, acc[m][3]);
-    }
-  }
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory (16-byte aligned
+// rows), lane l giving the address of row l % 8 of matrix l / 8; lane
+// (gid, tig) receives of matrix i the elements [gid][2 tig, 2 tig + 1] in
+// r[i]. For an mma A operand stored [m][k] pass A + (m0 + l % 8 + 8 ((l / 8)
+// % 2)) * lda + k0 + 8 (l / 16); for a B operand stored [n][k] (two 8-column
+// tiles, n0 and n0 + 8) pass B + (n0 + l % 8 + 8 (l / 16)) * ldb + k0 + 8
+// ((l / 8) % 2): r[0], r[1] are then tile n0's b0, b1 and r[2], r[3] tile
+// n0 + 8's.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers (cp.async); complete after the cp_async_wait that covers its
+// commit group.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// waits until at most n of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads), count threads in all, a
+// multiple of 32. sync waits for the count; arrive counts itself and goes
+// on. Shared-memory writes before either are visible to the threads that
+// pass the sync.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The four float32 values of an accumulator pair (rows gid and gid + 8, two
+// columns each) as the bf16 A fragment half they form: an m16n8 tile of
+// columns k0..k0+7 and its neighbour k0+8..k0+15 are exactly the A operand
+// of an m16n8k16 product over those 16 columns.
+__device__ __forceinline__ void acc_to_a(const float (&lo)[4],
+                                         const float (&hi)[4],
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(make_float2(lo[0], lo[1]));
+  a[1] = pack_bf16(make_float2(lo[2], lo[3]));
+  a[2] = pack_bf16(make_float2(hi[0], hi[1]));
+  a[3] = pack_bf16(make_float2(hi[2], hi[3]));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -164,8 +164,8 @@ class IocWeights:
     by :func:`pack_ioc` for lanes of at most ``max_agents`` agents. A
     snapshot: later changes to the param trees do not reach it.
 
-    use_mma (bf16 at tensor-core-friendly widths, at most 64 agents) runs
-    the per-step products on the tensor cores, which take the matrices
+    use_mma (bf16, d and C multiples of 16, d at most 64, at most 64
+    agents) runs the kernel's tensor-core path, which takes the matrices
     transposed, (out, in), with the heads zero-padded to 8 columns.
     """
     compute_dtype: torch.dtype
@@ -188,7 +188,7 @@ def pack_ioc(p_ioc, p_scf, compute_dtype, device, max_agents) -> IocWeights:
     d = int(gp["wh"].shape[0])
     c = int(gp["wi"].shape[0]) - 2 - 2 * d
     w = _split_weights(p_ioc, c, d)
-    use_mma = (cd == torch.bfloat16 and max_agents <= 64 and d <= 128
+    use_mma = (cd == torch.bfloat16 and max_agents <= 64 and d <= 64
                and d % 16 == 0 and c % 16 == 0)
     heads_w = w["heads_w"]
     if use_mma:

@@ -113,9 +113,11 @@ class SamplerWeights:
     made by :func:`pack_sampler`. A snapshot: later changes to the param
     tree do not reach it.
 
-    use_mma (bf16 at tensor-core-friendly widths) runs the sampler's
-    products on the tensor cores, which take the sampler matrices
-    transposed, (out, in); the encoder and prior matrices stay (in, out).
+    use_mma (bf16; lat and hid multiples of 16 up to 128 and 512, d a
+    multiple of 16 up to 64, side^2 a multiple of 64: the widths the
+    kernel's register tiles are built for) runs the sampler's products on
+    the tensor cores, which take the sampler matrices transposed, (out,
+    in); the encoder and prior matrices stay (in, out).
     """
     compute_dtype: torch.dtype
     use_mma: bool
@@ -140,8 +142,9 @@ def pack_sampler(p, compute_dtype, device) -> SamplerWeights:
     prw, prb = _prior(p, d, lat, device)
     w1, w2 = p["vdec_fc1"]["w"], p["vdec_fc"]["w"]
     hid, side2 = int(w1.shape[1]), int(w2.shape[1])
-    use_mma = (cd == torch.bfloat16 and lat % 16 == 0 and hid % 16 == 0
-               and side2 % 64 == 0 and d % 16 == 0)
+    use_mma = (cd == torch.bfloat16 and lat % 16 == 0 and lat <= 128
+               and hid % 16 == 0 and hid <= 512 and side2 % 64 == 0
+               and d % 16 == 0 and d <= 64)
 
     def w(t):
         return t.to(device=device, dtype=cd).contiguous()

@@ -132,6 +132,92 @@ def test_ioc_kernel_matches_plain(cuda_device, dtype, c, a, social_freeze):
         assert np.abs(g_sc - r_sc).mean() < 5e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,lat,d", [
+    (7, 3, 16, 16), (40, 20, 16, 16), (7, 3, 128, 16), (40, 20, 128, 16),
+    (7, 3, 16, 64), (40, 20, 128, 32)])
+def test_sampler_tensor_core_path_matches_plain(cuda_device, n, k, lat, d):
+    """The sampler's tensor-core path (64 lane rows a block) on row counts
+    N * K = 21 and 800 that are not multiples of 64, at lat 16 and 128
+    (hid 128 and 512) and d 16, 32 and 64, against the plain version in
+    bf16."""
+    cfg = _cfg(latent_size=lat, num_samples=k, compute_dtype="bfloat16",
+               d_dim=d)
+    p = _params(cfg, cuda_device)["sgm"]
+    rng = np.random.default_rng(n + lat)
+    t = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=cuda_device).to(dt)
+    mask = np.ones((n, cfg.obs_len))
+    mask[rng.random(n) < 0.3, :2] = 0.0
+    args = (t(np.maximum(rng.standard_normal(
+                (n, cfg.obs_len, cfg.embedding_size)), 0), torch.bfloat16),
+            t(mask), t(np.maximum(rng.standard_normal((n, cfg.d_dim)), 0)),
+            t(rng.standard_normal((n, k, lat)), torch.bfloat16))
+    w = sgm_fused.pack_sampler(p, torch.bfloat16, cuda_device)
+    assert w.use_mma
+    got = sgm_fused.sgm_sample_decode_cuda(w, *args, cfg.pred_len)
+    ref = sgm_fused.sgm_sample_decode_plain(p, *args, cfg.pred_len,
+                                            compute_dtype=torch.bfloat16)
+    for g, r in zip(got, ref):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=0, atol=5e-2)
+        assert np.abs(g - r).mean() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,k,live_mode,social_freeze,d,t", [
+    (5, 3, "dead", False, 16, 6), (20, 7, "dead", True, 16, 6),
+    (60, 50, "dead", False, 16, 6), (1, 7, "all", False, 16, 6),
+    (40, 7, "lone", True, 16, 6), (64, 5, "lone", False, 16, 6),
+    (20, 5, "dead", False, 64, 6), (12, 5, "dead", False, 32, 1),
+    (12, 5, "dead", True, 16, 2), (30, 3, "dead", False, 64, 2)])
+@pytest.mark.parametrize("collect_iters", [False, True])
+def test_ioc_tensor_core_path_matches_plain(cuda_device, a, k, live_mode,
+                                            social_freeze, d, t,
+                                            collect_iters):
+    """The IOC kernel's tensor-core path (several lanes a block) against the
+    plain version in bf16: K = 3, 7 and 50, which the lanes a block do not
+    all divide; A = 1; dead agents; a batch row whose one live agent has no
+    live neighbour; social_freeze; d = 16, 32 and 64; T = 1 and 2, where a
+    ring slot goes back to the producers only after the step's deltas; with
+    collect_iters every refine pass's positions. bf16 tolerances as in
+    chip_smoke.py."""
+    cfg = _cfg(scene_channels=16, compute_dtype="bfloat16", max_num_obj=a,
+               num_samples=k, d_dim=d, pred_len=t)
+    p = _params(cfg, cuda_device)
+    b = 2
+    rng = np.random.default_rng(a * k)
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=cuda_device).to(dt)
+    live = np.ones((b, a), np.float32)
+    if live_mode in ("dead", "lone"):
+        live = (rng.random((b, a)) > 0.3).astype(np.float32)
+        live[:, 0] = 1.0
+    if live_mode == "lone":
+        live[0, 1:] = 0.0
+    fut = np.ones((b, a, t)) * live[..., None]
+    fut[:, :, -1] = 0.0
+    args = (f(rng.uniform(0.2, 0.8, (b, a, k, t, 2))),
+            f(np.tanh(rng.standard_normal((b, a, k, t, d))), torch.bfloat16),
+            f(rng.standard_normal((b, 8, 8, 16)), torch.bfloat16), f(live),
+            f(fut))
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze, collect_iters=collect_iters)
+    w = ioc_fused.pack_ioc(p["ioc"], p["scf"], torch.bfloat16, cuda_device,
+                           a)
+    assert w.use_mma
+    got = ioc_fused.ioc_refine_cuda(w, *args, **kw)
+    ref = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args, **kw)
+    assert len(got) == len(ref) == (3 if collect_iters else 2)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        assert g.shape == r.shape and np.isfinite(g).all()
+        atol, mean = (0.1, 5e-3) if i == 1 else (5e-3, 2e-4)
+        np.testing.assert_allclose(g, r, rtol=0, atol=atol)
+        assert np.abs(g - r).mean() < mean
+
+
 def _ioc_train_case(cuda_device, dtype, c, a, d=16, seed=1):
     cfg = _cfg(scene_channels=c, compute_dtype=dtype, max_num_obj=a,
                d_dim=d)

@@ -183,6 +183,23 @@ def test_kernel_weight_packs(dtype, agents, mma):
     assert Predictor(p, cfg, device="cpu").kernel_weights == {}
 
 
+@pytest.mark.parametrize("d,mma", [(64, True), (80, False)])
+def test_kernel_weight_packs_tensor_core_widths(d, mma):
+    """bf16 packs take the kernels' tensor-core paths only up to d = 64 (the
+    widths their register tiles are built for); d = 80 keeps the (in, out)
+    layouts of the CUDA-core paths."""
+    cfg = DesireConfig(**{**TINY, "d_dim": d, "latent_size": 16,
+                          "scene_channels": 16, "rnn_size": 128})
+    p = init_desire(cfg, torch.Generator().manual_seed(0), "cpu")
+    sw = ops.pack_sampler(p["sgm"], torch.bfloat16, "cpu")
+    iw = ops.pack_ioc(p["ioc"], p["scf"], torch.bfloat16, "cpu", 8)
+    assert sw.use_mma == mma and iw.use_mma == mma
+    w1 = p["sgm"]["vdec_fc1"]["w"]
+    assert torch.equal(sw.tensors[6], (w1.t() if mma else w1).to(
+        torch.bfloat16).contiguous())
+    assert tuple(iw.tensors[5].shape) == ((8, d) if mma else (d, 4))
+
+
 def test_predictor_cuda_without_card_raises(monkeypatch):
     from desire_tpu_torch.serve import Predictor
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
