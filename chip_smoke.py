@@ -30,14 +30,17 @@ Run from the root of a checkout. It imports no JAX. In order, it:
 7. the layer-by-layer IOC path (use_social=False, fused_train=False):
    holds the scene-pool kernels against their plain versions (float32 and
    bfloat16 at small shapes with edge positions, channel counts that take
-   the forward's vector path and its channel loop, bfloat16 at the
-   flagship), the float32 forward with use_social=False and one float32
-   step with fused_train=False on the card against the CPU, serves three
+   the forward's vector path and its channel loop, a 27 x 27 grid,
+   thousands of points piled into single buckets, bfloat16 at the flagship
+   with edge positions and with piles, and at K = 50), the float32
+   forward with use_social=False and one float32 step with
+   fused_train=False on the card against the CPU, serves three
    requests with use_social=False, takes three run_epoch steps with
    fused_train=False (remat off and on: same losses, peak memory) and with
    use_social=False, checks that the scene-pool kernels were launched by
    them, and times the kernels against their plain versions and
-   grid_sample, the serving forward and the training steps;
+   grid_sample (the gradient also split by the kernels it launches), the
+   serving forward and the training steps;
 8. prints one JSON line of per-kernel results, then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
@@ -201,6 +204,27 @@ def time_ms(fn, repeats=5, iters=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, calls=5):
+    """{kernel name: device ms per call of fn} over `calls` calls (after one
+    warm-up call), by torch.profiler; names shortened to the kernel's own
+    (``scene_pool_dpos_kernel`` of its mangled template name)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"[a-z_]+_kernel", e.key)
+        name = m.group(0) if m else e.key[:40]
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
 
 
 @contextlib.contextmanager
@@ -793,9 +817,13 @@ def training_phase(dev, smi, rng):
             iters=1)
         del outs, leaves, loss
     raw5, target, mask_n, g = nll_args
-    t_nf = time_ms(lambda: nll.nll_fwd_cuda(raw5, target, mask_n))
+    # the NLL kernels take ~20 us, less than their wrappers' host time, so
+    # CUDA events around the calls would time the host: their device time
+    t_nf = sum(device_ms_by_kernel(
+        lambda: nll.nll_fwd_cuda(raw5, target, mask_n)).values())
     t_nf_p = time_ms(lambda: nll.bivariate_nll_plain(raw5, target, mask_n))
-    t_nb = time_ms(lambda: nll.nll_bwd_cuda(raw5, target, mask_n, g))
+    t_nb = sum(device_ms_by_kernel(
+        lambda: nll.nll_bwd_cuda(raw5, target, mask_n, g)).values())
     r = raw5.clone().requires_grad_(True)
     nll_graph = nll.bivariate_nll_plain(r, target, mask_n)
     t_nb_p = time_ms(lambda: torch.autograd.grad(nll_graph, [r], g,
@@ -807,8 +835,13 @@ def training_phase(dev, smi, rng):
                            ("nll_fwd", t_nf, t_nf_p),
                            ("nll_bwd", t_nb, t_nb_p)):
         print(f"{name} ms kernel {t_k:.3f} plain {t_p:.3f}", flush=True)
-
     n_rows = b * cfg.max_num_obj
+    for name, t_k, bwd in (("nll_fwd", t_nf, False), ("nll_bwd", t_nb, True)):
+        b_ms = bound(*nll_work(n_rows, cfg.num_samples, cfg.pred_len,
+                               backward=bwd), "f32")[0]
+        print(f"{name} ms kernel {t_k:.4f} (device time) bound {b_ms:.4f}",
+              flush=True)
+
     rows = []
     for name, src, rep, err, t_k, t_p, work, runs in (
             ("ioc_refine_train", "ioc_refine.cu",
@@ -853,8 +886,9 @@ def step_split(name, cfg, params, batch, step_ms):
     def loss_fwd():
         return desire_loss(p_req, cfg, *batch, step=0, generator=gen)[0]
     t_loss = time_ms(loss_fwd, repeats=3, iters=2)
-    t_loss_bwd = time_ms(lambda: torch.autograd.grad(loss_fwd(), leaves),
-                         repeats=3, iters=2)
+    # allow_unused: use_social=False leaves the social weights out
+    t_loss_bwd = time_ms(lambda: torch.autograd.grad(
+        loss_fwd(), leaves, allow_unused=True), repeats=3, iters=2)
     print(f"{name} split ms: loss forward {t_loss:.3f}, backward "
           f"{t_loss_bwd - t_loss:.3f}, optimizer and the rest "
           f"{step_ms - t_loss_bwd:.3f}", flush=True)
@@ -916,14 +950,38 @@ def scene_pool_inputs(b, g, c, p, cd, rng, device):
             f(rng.standard_normal((b, p, c)), cd))
 
 
-def check_scene_pool(b, g, c, p, cd, rng, device):
+def scene_pool_pile_inputs(b, g, c, p, cd, rng, device):
+    """Map, positions that pile up and a cotangent (p >= 8,129): 3,000
+    beyond (1, 1) (the far corner cell, whose four corners coincide), 2,000
+    inside cell (0, 0), 3,000 below the first grid row (clamped onto its
+    cells), 64 and 65 in two cells (a bucket of exactly one segment of the
+    gradient's sums and of just over one), the rest uniform in [0, 1]."""
+    h = 1.0 / (g - 1)
+    pos = rng.uniform(0.0, 1.0, (b, p, 2))
+    pos[:, :3000] = rng.uniform(1.0, 1.3, (b, 3000, 2))
+    pos[:, 3000:5000] = rng.uniform(0.0, h, (b, 2000, 2)) * 0.999
+    pos[:, 5000:8000, 1] = rng.uniform(-0.4, 0.0, (b, 3000))
+    pos[:, 8000:8064] = (np.asarray([3, 5]) + rng.uniform(
+        0.01, 0.99, (b, 64, 2))) * h
+    pos[:, 8064:8129] = (np.asarray([6, 2]) + rng.uniform(
+        0.01, 0.99, (b, 65, 2))) * h
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=device).to(dt)
+    return (f(rng.standard_normal((b, g, g, c)), cd), f(pos),
+            f(rng.standard_normal((b, p, c)), cd))
+
+
+def check_scene_pool(b, g, c, p, cd, rng, device, piles=False):
     """The scene-pool kernels against their plain versions on the card, and
-    the gradient kernels bitwise equal in two runs. Returns the max abs
-    errors (forward, backward) and the inputs."""
+    the gradient kernels bitwise equal in two runs, on scene_pool_inputs
+    (or, with piles, scene_pool_pile_inputs). Returns the max abs errors
+    (forward, backward) and the inputs."""
     from desire_tpu_torch.ops import scene_pool
-    fm, pos, gct = scene_pool_inputs(b, g, c, p, cd, rng, device)
+    make = scene_pool_pile_inputs if piles else scene_pool_inputs
+    fm, pos, gct = make(b, g, c, p, cd, rng, device)
     bf = cd == torch.bfloat16
-    tag = f"scene pool (B, G, C, P) = {(b, g, c, p)} {cd}"
+    tag = (f"scene pool (B, G, C, P) = {(b, g, c, p)} {cd}"
+           f"{' piles' if piles else ''}")
     got = scene_pool.scene_pool_fwd_cuda(fm, pos)
     ref = scene_pool.bilinear_pool_plain(fm, pos)
     e_f = check_close(f"{tag} forward", got, ref,
@@ -969,8 +1027,11 @@ def unfused_phase(dev, smi, rng, params):
     # -- 7a. float32, small shapes ------------------------------------------
     print("scene-pool kernels, float32, small shapes:", flush=True)
     for b, g, c, p in ((2, 8, 8, 700), (2, 8, 32, 700), (3, 32, 32, 1000),
-                       (2, 8, 12, 701), (2, 8, 6, 701)):
+                       (2, 8, 12, 701), (2, 8, 6, 701), (2, 27, 32, 2001)):
         check_scene_pool(b, g, c, p, torch.float32, rng, dev)
+    # thousands of points in a bucket: the gradient's long buckets
+    for b, g, c in ((2, 32, 32), (2, 27, 12)):
+        check_scene_pool(b, g, c, 14400, torch.float32, rng, dev, piles=True)
     # bfloat16 at small shapes: C = 8 and 32 take the forward's vector path
     # (P not a multiple of its points per warp), C = 12 its channel loop
     print("scene-pool kernels, bfloat16, small shapes:", flush=True)
@@ -1000,6 +1061,12 @@ def unfused_phase(dev, smi, rng, params):
     print("scene-pool kernels, bfloat16, flagship shape:", flush=True)
     pf_err, pb_err, pool_args = check_scene_pool(b, g, c, p, torch.bfloat16,
                                                  rng, dev)
+    pb_err = max(pb_err, check_scene_pool(b, g, c, p, torch.bfloat16, rng,
+                                          dev, piles=True)[1])
+    # K = 50 lanes (B = 16): P = 36,000 points a row
+    print("scene-pool kernels, bfloat16, K = 50, B = 16:", flush=True)
+    pb_err = max(pb_err, check_scene_pool(16, g, c, a * 50 * t,
+                                          torch.bfloat16, rng, dev)[1])
     r_f = max(cfg.num_refine, 1) + 1
 
     # -- 7c. serving with use_social=False --------------------------------------
@@ -1048,8 +1115,9 @@ def unfused_phase(dev, smi, rng, params):
           flush=True)
     # the check's inputs put a quarter of the points on the border rows
     # (clamped), the gradient's worst case; the path's positions lie inside
-    fm, pos, gct = pool_args
-    t_b_edge = time_ms(lambda: scene_pool.scene_pool_bwd_cuda(fm, pos, gct))
+    fm, pos_edge, gct = pool_args
+    t_b_edge = time_ms(lambda: scene_pool.scene_pool_bwd_cuda(fm, pos_edge,
+                                                              gct))
     pos = torch.as_tensor(rng.uniform(0.15, 0.85, (b, p, 2)).astype(
         np.float32), device=dev)
     t_f = time_ms(lambda: scene_pool.scene_pool_fwd_cuda(fm, pos))
@@ -1087,6 +1155,13 @@ def unfused_phase(dev, smi, rng, params):
     print(f"scene_pool_bwd ms kernel {t_b:.4f} plain {t_b_p:.4f} "
           f"grid_sample backward {t_b_lib:.4f}; kernel on the check's "
           f"inputs (a quarter on the borders) {t_b_edge:.4f}", flush=True)
+    for label, pp in (("uniform", pos), ("check inputs", pos_edge)):
+        split = device_ms_by_kernel(
+            lambda: scene_pool.scene_pool_bwd_cuda(fm, pp, gct))
+        print(f"scene_pool_bwd on {label} positions, device ms by kernel "
+              f"(torch.profiler): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(split.items())),
+              flush=True)
     bx, bm, bids = flagship_windows(cfg, rng, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

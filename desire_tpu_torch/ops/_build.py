@@ -125,8 +125,10 @@ def library():
     lib.nll_bwd_launch.restype = _I
     lib.scene_pool_fwd_launch.argtypes = [_I] + [_P] * 3 + [_I] * 5 + [_P]
     lib.scene_pool_fwd_launch.restype = _I
-    lib.scene_pool_bwd_launch.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_P]
+    lib.scene_pool_bwd_launch.argtypes = [_I] + [_P] * 6 + [_I] * 4 + [_P]
     lib.scene_pool_bwd_launch.restype = _I
+    lib.scene_pool_bwd_ws_bytes.argtypes = [_I] * 4
+    lib.scene_pool_bwd_ws_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -11,9 +11,13 @@ ends.
 
 On CUDA tensors the forward is ``csrc/scene_pool.cu
 scene_pool_fwd_vec_kernel`` (16-byte pieces of a row per thread) or, for
-other channel counts, ``scene_pool_fwd_kernel``, and the gradient
-``scene_pool_dmap_kernel`` (deterministic, no atomics)
-plus ``scene_pool_dpos_kernel``; on CPU tensors the plain versions run.
+other channel counts, ``scene_pool_fwd_kernel``, and the gradient a stable
+bucketing of the points by cell (``scene_pool_bucket_kernel``), per-segment
+sums of each bucket (``scene_pool_seg_kernel``, which also computes d_pos
+where a row is a power of two of 16-byte pieces; else
+``scene_pool_dpos_kernel``) and one owner per d_map output adding them
+(``scene_pool_dmap_kernel``); all of it deterministic, with no float
+atomics. On CPU tensors the plain versions run.
 ``models/scf.py`` keeps the layer-by-layer semantics of the JAX package's
 XLA path (weights not rounded) for ``cfg.use_pallas=False``.
 """
@@ -134,21 +138,26 @@ def scene_pool_fwd_cuda(feat_map, pos):
 
 
 def scene_pool_bwd_cuda(feat_map, pos, g):
-    """Launch the gradient kernels (``scene_pool_dmap_kernel``,
-    ``scene_pool_dpos_kernel``) for the cotangent g (B, P, C) in the map's
-    dtype. Returns (d_map (B, G, G, C) in the map's dtype, d_pos (B, P, 2)
-    float32); d_map is bitwise reproducible."""
+    """Launch the gradient kernels (the bucketing, d_map's two levels and
+    d_pos) for the cotangent g (B, P, C) in the map's dtype, with a
+    workspace of ``scene_pool_bwd_ws_bytes``. Returns (d_map (B, G, G, C) in
+    the map's dtype, d_pos (B, P, 2) float32), both bitwise reproducible.
+    Raises where the kernels cannot launch (G^2 cells' histogram beyond a
+    block's shared memory, or B > 65535)."""
     if not feat_map.is_cuda:
         raise ValueError("scene_pool_bwd_cuda needs CUDA tensors")
     b, p, gr, c = _shapes(feat_map, pos)
     _build.check(g, "g", (b, p, c), feat_map.dtype, feat_map.device)
+    lib = _build.library()
     d_map = torch.empty_like(feat_map)
     d_pos = torch.empty((b, p, 2), dtype=_F32, device=feat_map.device)
-    rc = _build.library().scene_pool_bwd_launch(
+    ws = torch.empty(lib.scene_pool_bwd_ws_bytes(b, p, gr, c),
+                     dtype=torch.uint8, device=feat_map.device)
+    rc = lib.scene_pool_bwd_launch(
         int(feat_map.dtype == torch.bfloat16), feat_map.data_ptr(),
-        pos.data_ptr(), g.data_ptr(), d_map.data_ptr(), d_pos.data_ptr(), b,
-        p, gr, c, ctypes.c_void_p(torch.cuda.current_stream(
-            feat_map.device).cuda_stream))
+        pos.data_ptr(), g.data_ptr(), d_map.data_ptr(), d_pos.data_ptr(),
+        ws.data_ptr(), b, p, gr, c, ctypes.c_void_p(
+            torch.cuda.current_stream(feat_map.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"scene_pool_bwd kernel launch failed: CUDA error "
                            f"{rc}")

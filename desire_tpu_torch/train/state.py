@@ -6,8 +6,10 @@ adam(exponential_decay(lr, steps_per_epoch, decay_rate, staircase=True)))``.
 This module reproduces that chain step for step, not PyTorch's own
 optimizers:
 
-* clip by global norm: g <- (g / |g|) * max_norm only when |g| >= max_norm
-  (no epsilon), |g| summed over the leaves in the JAX tree order;
+* clip by global norm: g <- g where |g| < max_norm, else (g / |g|) *
+  max_norm (no epsilon; a NaN norm fails the test, so every leaf turns
+  NaN, as optax's select does), |g| summed over the leaves in the JAX tree
+  order, the choice made on the device;
 * Adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected moments;
 * the rate lr * decay_rate ** floor(count / steps_per_epoch), count being
   the optimizer's own update count before this update.
@@ -101,7 +103,7 @@ def apply_updates(cfg: DesireConfig, steps_per_epoch: int,
     m_l, v_l = tree_leaves(state.mu), tree_leaves(state.nu)
     g_norm = global_norm(g_l)
     max_norm = float(cfg.grad_clip)
-    clip = bool(g_norm >= max_norm)
+    keep = g_norm < max_norm
     count = state.count + 1
     lr = learning_rate(cfg, steps_per_epoch, state.count)
     bc1 = 1.0 - torch.tensor(B1, dtype=torch.float32) ** count
@@ -109,8 +111,7 @@ def apply_updates(cfg: DesireConfig, steps_per_epoch: int,
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(p_l, g_l, m_l, v_l):
         g = g.float()
-        if clip:
-            g = (g / g_norm) * max_norm
+        g = torch.where(keep, g, (g / g_norm) * max_norm)
         m = (1.0 - B1) * g + B1 * m
         v = (1.0 - B2) * (g * g) + B2 * v
         m_hat = m / bc1.to(m.device)

@@ -343,11 +343,12 @@ def test_ioc_backward_workspace_size(cuda_device, shape, social_freeze):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,t", [(9, 3, 6), (300, 20, 12)])
+@pytest.mark.parametrize("n,k,t", [(9, 3, 6), (300, 20, 12), (7, 5, 11)])
 def test_nll_kernels_match_plain(cuda_device, n, k, t):
     """The NLL forward and backward kernels against the plain version and
     its autograd, with rows where the log-density floor is active (zero
-    gradient there)."""
+    gradient there). The backward's blocks take 256 items: 162, 72,000 and
+    385 items leave a partial last block."""
     from desire_tpu_torch.ops import nll
     rng = np.random.default_rng(n)
     raw5 = rng.standard_normal((n, k, t, 5)) * 0.5
@@ -435,6 +436,62 @@ def test_scene_pool_kernels_match_plain(cuda_device, dtype, c, p):
         .abs().max()) == 0.0
     again = scene_pool.scene_pool_bwd_cuda(fm, pos, g)
     assert torch.equal(again[0], d_map) and torch.equal(again[1], d_pos)
+
+
+def _scene_pool_piles(device, b, g, c, p, dtype, seed=0):
+    """Positions that pile up: 3,000 beyond (1, 1) (the far corner cell,
+    whose four corners coincide), 2,000 inside cell (0, 0), 3,000 below
+    the first grid row (clamped onto the border row's cells), 64 and 65 in
+    two cells (a bucket of exactly one segment and of just over one), the
+    rest uniform in [0, 1]; a map and a cotangent."""
+    rng = np.random.default_rng(seed)
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    h = 1.0 / (g - 1)
+    pos = rng.uniform(0.0, 1.0, (b, p, 2))
+    pos[:, :3000] = rng.uniform(1.0, 1.3, (b, 3000, 2))
+    pos[:, 3000:5000] = rng.uniform(0.0, h, (b, 2000, 2)) * 0.999
+    pos[:, 5000:8000, 1] = rng.uniform(-0.4, 0.0, (b, 3000))
+    pos[:, 8000:8064] = (np.asarray([3, 5]) + rng.uniform(
+        0.01, 0.99, (b, 64, 2))) * h
+    pos[:, 8064:8129] = (np.asarray([6, 2]) + rng.uniform(
+        0.01, 0.99, (b, 65, 2))) * h
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=device).to(dt)
+    return (f(rng.standard_normal((b, g, g, c)), cd), f(pos),
+            f(rng.standard_normal((b, p, c)), cd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,g,c,p", [
+    ("piles", "bfloat16", 32, 32, 14400), ("piles", "float32", 32, 32, 14400),
+    ("piles", "float32", 32, 12, 14400), ("spread", "bfloat16", 27, 32, 2000),
+    ("spread", "float32", 27, 12, 2001), ("piles", "bfloat16", 27, 8, 9000),
+    ("spread", "bfloat16", 32, 32, 60000)])
+def test_scene_pool_gradient_piles_and_odd_grids(cuda_device, case, dtype, g,
+                                                 c, p):
+    """The gradient against its plain version where thousands of points
+    share a bucket (long buckets summed by segments), on a grid whose side
+    is not a power of two (27), and at P = 60,000 (too many points a row
+    to stage the bucketing's scatter in shared memory), with the
+    tolerances of test_scene_pool_kernels_match_plain (f32 d_map sums up
+    to ~3,000 points a node here); d_map and d_pos bitwise equal in two
+    calls."""
+    from desire_tpu_torch.ops import scene_pool
+    make = _scene_pool_piles if case == "piles" else _scene_pool_case
+    fm, pos, gct = make(cuda_device, 2, g, c, p, dtype)
+    d_map, d_pos = scene_pool.scene_pool_bwd_cuda(fm, pos, gct)
+    r_map, r_pos = scene_pool.bilinear_pool_plain_bwd(fm, pos, gct)
+    np.testing.assert_allclose(d_map.float().cpu().numpy(),
+                               r_map.float().cpu().numpy(),
+                               rtol=1e-4 if dtype == "float32" else 2.0 ** -7,
+                               atol=1e-4)
+    np.testing.assert_allclose(d_pos.cpu().numpy(), r_pos.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    outside = (pos < 0) | (pos > 1)
+    assert float(d_pos[outside].abs().max()) == 0.0
+    for _ in range(2):
+        again = scene_pool.scene_pool_bwd_cuda(fm, pos, gct)
+        assert torch.equal(again[0], d_map) and torch.equal(again[1], d_pos)
 
 
 @pytest.mark.cuda

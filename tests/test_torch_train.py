@@ -211,6 +211,49 @@ def test_optimizer_matches_optax(clip):
                                        atol=1e-7)
 
 
+def _adam_moments(opt_state):
+    """(mu, nu) of the Adam state inside an optax chain's state."""
+    adam = optax.ScaleByAdamState
+    for s in jax.tree_util.tree_leaves(
+            opt_state, is_leaf=lambda x: isinstance(x, adam)):
+        if isinstance(s, adam):
+            return s.mu, s.nu
+    raise AssertionError("no ScaleByAdamState in the optimizer state")
+
+
+def test_optimizer_matches_optax_on_a_nan_norm():
+    """A gradient with one NaN element makes the global norm NaN: optax's
+    clip selects on |g| < max_norm, so every leaf is rescaled to NaN. The
+    port's params, mu and nu hold NaN in the same places, and finite values
+    equal to optax's (one finite update first, then the NaN one)."""
+    cfg = _cfg(grad_clip=0.5, learning_rate=1e-2, decay_rate=0.5)
+    rng = np.random.default_rng(3)
+    params = {"a": rng.standard_normal(3).astype(np.float32),
+              "b": rng.standard_normal(2).astype(np.float32)}
+    tx = jstate.make_optimizer(cfg, steps_per_epoch=2)
+    j_p, j_s = params, tx.init(params)
+    t_st = tstate.create_train_state(cfg, from_jax(params))
+    finite = {"a": np.asarray([0.1, -0.2, 0.05], np.float32),
+              "b": np.asarray([0.3, 0.1], np.float32)}
+    nan = {"a": np.asarray([np.nan, 1.0, 1.0], np.float32),
+           "b": np.asarray([1.0, 1.0], np.float32)}
+    for g in (finite, nan):
+        upd, j_s = tx.update(g, j_s, j_p)
+        j_p = optax.apply_updates(j_p, upd)
+        p, mu, nu, count = tstate.apply_updates(cfg, 2, t_st, from_jax(g))
+        t_st = tstate.TrainState(t_st.step + 1, p, mu, nu, count,
+                                 t_st.generator)
+        j_mu, j_nu = _adam_moments(j_s)
+        for ref, got in ((j_p, t_st.params), (j_mu, t_st.mu),
+                         (j_nu, t_st.nu)):
+            for r, x in zip(jax.tree_util.tree_leaves(ref),
+                            tstate.tree_leaves(got)):
+                np.testing.assert_allclose(x.numpy(), np.asarray(r),
+                                           rtol=1e-6, atol=1e-7,
+                                           equal_nan=True)
+    assert np.isnan(t_st.params["b"].numpy()).all()
+
+
 def test_train_step_matches_jax(jax_params):
     """One make_train_step step against the JAX step, on the same state and
     the JAX step's own random draws."""
