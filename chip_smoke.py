@@ -41,7 +41,21 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    them, and times the kernels against their plain versions and
    grid_sample (the gradient also split by the kernels it launches), the
    serving forward and the training steps;
-8. prints one JSON line of per-kernel results, then, last, the device line.
+8. the training entry point (``python -m desire_tpu_torch.train``'s
+   ``train.run.train``) on a synthetic SDD tree made from the seed (2
+   scenes of 2 videos, 3600 frames, ~60 agents a frame) at the flagship
+   width: 2 epochs of 4 batches with the held-out evaluation, checkpoints,
+   the best checkpoint and its final selection, the rank-blend fit; checks
+   that the training and serving kernels were launched by it, holds the
+   short last held-out batch through the serving kernels against their
+   plain versions (each kernel call of its bf16 forward, as ``evaluate``
+   runs it, on the inputs that call was given; its float32 forward whole),
+   resumes a run stopped after 2 batches and holds it bit for bit against
+   an uninterrupted one (deterministic algorithms, in a process of its own
+   started with cuBLAS's deterministic workspace), serves
+   64 windows from the best checkpoint, and times the step through the
+   entry point, the loader, a checkpoint save and an eval batch;
+9. prints one JSON line of per-kernel results, then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -699,6 +713,14 @@ def training_phase(dev, smi, rng):
             check_close(f"d {name}{tag}", g_k[name], g_p[name],
                         **F32_GRAD_TOL)
     check_nll(9, scfg.num_samples, scfg.pred_len, rng, dev)
+    # odd shapes of the NLL forward's staging: K not a multiple of its 32
+    # lanes a block (blocks straddle rows n), T = 1 and 6 (read float by
+    # float), T = 20 (16-byte pieces), T = 8 (a 10-piece row padded to 11),
+    # T = 100 and 400 (chunks of 32 steps, the last one partial; 33 rows n
+    # a block at K = 1), T = 37 (float by float in chunks)
+    for odd in ((37, 7, 1), (50, 13, 20), (40, 5, 8), (11, 3, 6),
+                (10, 9, 100), (40, 1, 400), (12, 20, 400), (9, 5, 37)):
+        check_nll(*odd, rng, dev)
 
     # -- 6b. bfloat16, flagship shape -----------------------------------------
     print("training kernels, bfloat16, flagship shape:", flush=True)
@@ -1200,6 +1222,385 @@ def unfused_phase(dev, smi, rng, params):
     return rows
 
 
+# -- the training entry point ---------------------------------------------------
+
+def write_sdd_tree(root, rng, scenes=2, videos=2, frames=3600, alive=60):
+    """A synthetic SDD tree: <root>/scene<i>/video<j>/annotations_processed.csv
+    in the dataset's transposed 4-row layout (frames, ids, xs, ys), a
+    record every frame (30 fps) of agents walking straight lines in a
+    1000 x 1000 px scene, each alive 1200-2400 frames, about `alive` of
+    them at any frame."""
+    for s in range(scenes):
+        for v in range(videos):
+            n = int(alive * (frames + 1800) / 1800)
+            start = rng.integers(-1800, frames, n)
+            life = rng.integers(1200, 2401, n)
+            p0 = rng.uniform(100.0, 900.0, (n, 2))
+            vel = rng.uniform(-0.5, 0.5, (n, 2))
+            recs = []
+            for i in range(n):
+                f = np.arange(max(start[i], 0), min(start[i] + life[i], frames))
+                if len(f):
+                    xy = np.clip(p0[i] + vel[i] * (f - start[i])[:, None]
+                                 + rng.normal(0, 0.3, (len(f), 2)), 0, 1000)
+                    recs.append(np.column_stack(
+                        [f, np.full(len(f), i + 1), xy]))
+            rec = np.concatenate(recs)
+            rec = rec[np.lexsort((rec[:, 1], rec[:, 0]))].T
+            path = os.path.join(root, f"scene{s}", f"video{v}",
+                                "annotations_processed.csv")
+            os.makedirs(os.path.dirname(path))
+            with open(path, "w") as fh:
+                np.savetxt(fh, rec, fmt="%.2f", delimiter=",")
+    return root
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms for the block, warning (not
+    raising) where an op has no deterministic CUDA implementation; yields
+    the list of warnings caught."""
+    import warnings
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = bench
+
+
+def entry_step_ms(metrics_path, epochs):
+    """Per-batch wall ms of the logged training steps of `epochs` in a
+    metrics.jsonl (every batch logged), from run_epoch's running
+    sec_per_batch: loader, copy, step and the log's sync."""
+    rows = [json.loads(line) for line in open(metrics_path)]
+    out = []
+    for e in epochs:
+        tr = [r for r in rows if r["event"] == "train" and r["epoch"] == e]
+        done = [r["sec_per_batch"] * (i + 1) for i, r in enumerate(tr)]
+        out += [1e3 * (b - a) for a, b in zip([0.0] + done[:-1], done)]
+    return out
+
+
+def entry_cfg(data_dir, save_dir):
+    """Phase 8's configuration: the flagship at the dataset's geometry,
+    holding out a video of each scene."""
+    return flagship_cfg(data_dir=data_dir, save_dir=save_dir, subsample=12,
+                        window_hop=2, eval_hop=4, holdout="video",
+                        num_epochs=2, save_every=128, seed=0)
+
+
+@contextlib.contextmanager
+def recorded_serving_calls():
+    """Record every call of the model's serving kernel call sites (sampler,
+    IOC refine), which go through as usual; yields the list of (kernel
+    name, args, kwargs, outputs)."""
+    from desire_tpu_torch import ops
+    calls = []
+    saved = ops.sgm_sample_decode, ops.ioc_refine
+
+    def recorder(name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((name, a, kw, out))
+            return out
+        return call
+    ops.sgm_sample_decode = recorder("sgm_sample", saved[0])
+    ops.ioc_refine = recorder("ioc_refine", saved[1])
+    try:
+        yield calls
+    finally:
+        ops.sgm_sample_decode, ops.ioc_refine = saved
+
+
+def resume_check(data_dir, tmp):
+    """Phase 8d, in a process of its own started with cuBLAS's
+    deterministic workspace (CUBLAS_WORKSPACE_CONFIG): 4 steps of the entry
+    point at once against 2 steps, a stop and 2 resumed steps, under
+    deterministic algorithms; params and Adam's moments must agree bit for
+    bit, or within the step tolerance where an op of the path has no
+    deterministic CUDA implementation (named)."""
+    from desire_tpu_torch.train import run
+    from desire_tpu_torch.train.state import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("resume: 4 steps at once vs 2 steps, stop, resume, 2 steps "
+          f"(deterministic algorithms, CUBLAS_WORKSPACE_CONFIG="
+          f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')})", flush=True)
+    cfg = entry_cfg(data_dir, None).replace(num_epochs=1)
+    runs = {}
+    with deterministic_algorithms() as caught:
+        for name, batches, resume in (("whole", 4, False),
+                                      ("stopped", 2, False),
+                                      ("resumed", 2, True)):
+            sd = os.path.join(tmp, "whole" if name == "whole" else "parts")
+            runs[name] = run.train(cfg.replace(save_dir=sd), resume=resume,
+                                   eval_every=0, max_train_batches=batches,
+                                   device="cuda")
+    a, b = runs["whole"], runs["resumed"]
+    leaves = [(x, y) for f in ("params", "mu", "nu")
+              for x, y in zip(tree_leaves(getattr(a, f)),
+                              tree_leaves(getattr(b, f)))]
+    bitwise = all(torch.equal(x, y) for x, y in leaves) and \
+        (a.step, a.count) == (b.step, b.count) == (4, 4)
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    print(f"  steps {a.step} / {b.step}; params, Adam moments bitwise "
+          f"equal: {bitwise}; ops without a deterministic CUDA "
+          f"implementation: {nondet or 'none'}", flush=True)
+    if not bitwise:
+        worst = max(float((x - y).abs().max()) for x, y in leaves)
+        moved = sum(int(((x - y).abs() > 1e-4).sum()) for x, y in leaves)
+        share = moved / sum(x.numel() for x, _ in leaves)
+        lim = 4 * STEP_MAX_ABS(cfg.learning_rate)
+        print(f"  resumed vs whole: max_abs_err={worst:.3e} (<= "
+              f"{lim:.3e}), share off by > 1e-4 {share:.2e} (<= "
+              f"{STEP_FLIP_SHARE})", flush=True)
+        if not nondet or worst > lim or share > STEP_FLIP_SHARE:
+            raise AssertionError("the resumed run parts from the "
+                                 "uninterrupted one")
+
+
+def entry_point_phase(dev, smi, rng):
+    """Phase 8: the port's training entry point (train.run.train) on a
+    synthetic SDD tree at the flagship width: train, checkpoint, evaluate
+    on the held-out split, keep and re-select the best checkpoint, fit the
+    rank blend, resume bit for bit, serve the best checkpoint."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.data import loader as loader_mod
+    from desire_tpu_torch.data.native import build as native_build
+    from desire_tpu_torch.data.native import fast_csv
+    from desire_tpu_torch.eval.sampler import evaluate
+    from desire_tpu_torch.models.desire import desire_forward
+    from desire_tpu_torch.ops import ioc_fused, sgm_fused
+    from desire_tpu_torch.serve import Predictor
+    from desire_tpu_torch.train import checkpoint as ckpt_mod
+    from desire_tpu_torch.train import run
+    from desire_tpu_torch.train.trainer import (batch_to_device,
+                                                make_eval_forward)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="desire_entry_")
+    old_cache = os.environ.get("DESIRE_TORCH_CACHE_DIR")
+    os.environ["DESIRE_TORCH_CACHE_DIR"] = os.path.join(tmp, "cache")
+    try:
+        # -- 8a. data ---------------------------------------------------------
+        try:
+            native_build.build(verbose=False)
+            fast_csv._lib = None
+        except (subprocess.CalledProcessError, FileNotFoundError) as e:
+            print(f"  native CSV parser not built ({e}): the Python reader "
+                  f"reads the CSVs", flush=True)
+        t0 = time.perf_counter()
+        data_dir = write_sdd_tree(os.path.join(tmp, "data"), rng)
+        print(f"  synthetic SDD tree: 2 scenes x 2 videos x 3600 frames in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        save_dir = os.path.join(tmp, "run")
+        cfg = entry_cfg(data_dir, save_dir)
+
+        # -- 8b. train through the entry point ------------------------------
+        print("training entry point: 2 epochs x 4 batches at B=64, A=60, "
+              "K=20, bf16; eval on 2 held-out batches an epoch, final "
+              "selection of 2 on the whole held-out split", flush=True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = run.train(cfg, eval_every=1, max_eval_batches=2,
+                          final_select_top=2, max_train_batches=4,
+                          device="cuda", log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        print(f"  train(): {train_s:.1f} s, step {state.step}; launches "
+              f"{launches}", flush=True)
+        events = [json.loads(line) for line in
+                  open(os.path.join(save_dir, "metrics.jsonl"))]
+        kinds = {}
+        for e in events:
+            kinds.setdefault(e["event"], []).append(e)
+        for need in ("data", "eval_data", "train", "epoch", "eval", "best",
+                     "final_select_candidate", "final_select",
+                     "rank_blend_fit"):
+            if need not in kinds:
+                raise AssertionError(f"no '{need}' event in metrics.jsonl")
+        fit = kinds["rank_blend_fit"][0]
+        if "error" in fit:
+            raise AssertionError(f"rank_blend_fit failed: {fit['error']}")
+        for sub in ("best", "best_pool"):
+            if not ckpt_mod.CheckpointManager(
+                    os.path.join(save_dir, sub)).all_steps():
+                raise AssertionError(f"no checkpoint in {sub}/")
+        evs = kinds["eval"]
+        if state.step != 8 or len(evs) != 2 or not all(
+                np.isfinite(e["minADE_px"]) and e["num_agents"] > 0
+                for e in evs):
+            raise AssertionError("8 steps and 2 finite evals expected")
+        print(f"  data: {kinds['data'][0]}", flush=True)
+        print(f"  evals: {[round(e['minADE_px'], 3) for e in evs]} px "
+              f"minADE; final selection {kinds['final_select'][0]}; rank "
+              f"blend {fit['blend']}", flush=True)
+        # 8 training steps; eval forwards: 2 epochs x 2 batches, 2
+        # candidates x the whole held-out split, the blend fit's slice
+        check_launches("the entry point's training steps", launches,
+                       ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
+                        "nll_bwd"), 8)
+        check_launches("the entry point's evaluation", launches,
+                       ("sgm_sample", "ioc_refine"), 4 + 2 * 3)
+
+        # -- 8c. the short held-out batch against the plain versions --------
+        eval_loader = loader_mod.SDDLoader(cfg.replace(window_hop=4),
+                                           split="heldout",
+                                           drop_remainder=False)
+        short = list(eval_loader.epoch_batches(0))[-1]
+        bs = short.batch_size
+        print(f"short held-out batch: B = {bs} of {eval_loader.num_windows} "
+              f"windows", flush=True)
+        if bs == cfg.batch_size:
+            raise AssertionError("the held-out split has no short batch")
+        params = state.params
+        xy, mask, ids = batch_to_device(short, dev)
+        n = bs * cfg.max_num_obj
+        # the batch's bf16 forward as evaluate runs it, its kernels' calls
+        # recorded, then each held against its plain version on the very
+        # inputs it was given
+        eps = torch.as_tensor(rng.standard_normal(
+            (n, cfg.num_samples, cfg.latent_size)).astype(np.float32),
+            device=dev)
+        with recorded_serving_calls() as calls:
+            make_eval_forward(cfg)(params, xy, mask, ids, eps=eps)
+        if sorted(c[0] for c in calls) != ["ioc_refine", "sgm_sample"]:
+            raise AssertionError(f"the short batch's forward called "
+                                 f"{[c[0] for c in calls]}")
+        for name, a, kw, got in calls:
+            kw = {k: v for k, v in kw.items() if k != "weights"}
+            if name == "sgm_sample":
+                ref = sgm_fused.sgm_sample_decode_plain(*a, **kw)
+                keys = ("dec_h", "hx")
+            else:
+                ref = ioc_fused.ioc_refine_plain(*a, **kw)
+                keys = ("refined", "scores")
+            for key, x, y in zip(keys, got, ref):
+                check_bf16(key, x, y)
+        del calls
+        # the whole forward of the batch in float32: kernels vs plain
+        cfg32 = cfg.replace(compute_dtype="float32")
+        eps = torch.as_tensor(rng.standard_normal(
+            (n, cfg.num_samples, cfg.latent_size)).astype(np.float32),
+            device=dev)
+        outs = {}
+        for name, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", plain_ops)):
+            with ctx():
+                outs[name] = desire_forward(params, cfg32, xy, mask, ids,
+                                            eps=eps)
+        for key, tol in (("sgm_traj", F32_TOL), ("refined_traj", F32_TOL),
+                         ("scores", F32_SCORE_TOL)):
+            check_close(f"short batch forward {key}", outs["kernels"][key],
+                        outs["plain"][key], **tol)
+        del outs
+
+        # -- 8d. resume bit for bit -----------------------------------------
+        # in a process of its own: cuBLAS reads its deterministic workspace
+        # setting when it starts, and the other phases keep the default
+        sys.stdout.flush()
+        rc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--resume-check",
+             data_dir, tmp], env=dict(os.environ,
+                                      CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+            timeout=600).returncode
+        if rc != 0:
+            raise AssertionError(f"the resume check exited with {rc}")
+
+        # -- 8e. serve the best checkpoint -----------------------------------
+        # the caller's config (bf16, K = 20) under the saved geometry
+        pred = Predictor.from_checkpoint(save_dir, best=True, device="cuda",
+                                         cfg=cfg, max_windows=64)
+        best_cfg = ckpt_mod.load_config(os.path.join(save_dir, "best"))
+        if pred.cfg.rank_blend_fit != best_cfg.rank_blend_fit \
+                or best_cfg.rank_blend_fit != fit["blend"]:
+            raise AssertionError("best/ does not carry the fitted blend")
+        wins = synthetic_windows(cfg, rng, 64)
+        res = pred.predict_windows(wins, scales=1000.0)
+        for (oxy, _, wids), r in zip(wins, res):
+            na = min(len(wids), cfg.max_num_obj)
+            if r["traj"].shape != (na, cfg.num_samples, cfg.pred_len, 2) \
+                    or not np.isfinite(r["traj"]).all():
+                raise AssertionError("a served forecast of the best "
+                                     "checkpoint is malformed")
+        print(f"  served 64 windows from best/ (step "
+              f"{ckpt_mod.CheckpointManager(os.path.join(save_dir, 'best')).latest_step()}"
+              f", rank blend {pred.cfg.rank_blend_fit}): stats "
+              f"{pred.stats()}", flush=True)
+
+        # -- 8f. timing -------------------------------------------------------
+        step_ms = entry_step_ms(os.path.join(save_dir, "metrics.jsonl"),
+                                (0, 1))
+        tr_loader = loader_mod.SDDLoader(cfg, split="train")
+        t0 = time.perf_counter()
+        nb = sum(1 for _ in tr_loader.epoch_batches(0))
+        load_ms = (time.perf_counter() - t0) * 1e3 / nb
+        mgr = ckpt_mod.CheckpointManager(os.path.join(tmp, "timing"),
+                                         keep=1)
+        save_ms = []
+        for i in range(3):
+            st = dataclasses.replace(state, step=100 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(st, tr_loader.state, cfg)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        # the card's share of a step through run_epoch (loader, copy, step,
+        # the log's sync at log_every=1), over 4 batches, by log cadence
+        from torch.profiler import ProfilerActivity, profile
+        from desire_tpu_torch.train.trainer import make_train_step, run_epoch
+        step_fn = make_train_step(cfg, tr_loader.num_batches)
+        busy = {}
+        for every in (1, 20):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_epoch(state, tr_loader, 1, step_fn, log_every=every,
+                          log_fn=lambda m, st: None, max_batches=4)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 4
+            busy[every] = (sum(e.self_device_time_total
+                               for e in prof.key_averages()
+                               if e.device_type
+                               == torch.autograd.DeviceType.CUDA) / 4e3,
+                           wall)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(params, cfg, eval_loader)
+        eval_ms = (time.perf_counter() - t0) * 1e3 / eval_loader.num_batches
+        print(f"entry point on {smi} (host clock): step median "
+              f"{statistics.median(step_ms):.3f} ms over {len(step_ms)} "
+              f"logged steps ({[round(x, 1) for x in step_ms]}), "
+              f"{1e3 * len(step_ms) / sum(step_ms):.2f} steps/s; loader "
+              f"{load_ms:.3f} ms a batch; checkpoint save "
+              f"{statistics.median(save_ms):.3f} ms (median of 3); eval "
+              f"{eval_ms:.3f} ms a batch ({eval_loader.num_batches} "
+              f"batches); CSV reader {tr_loader.reader}", flush=True)
+        for every, (b_ms, w_ms) in busy.items():
+            print(f"run_epoch on {smi}, 4 batches, log_every={every}: "
+                  f"{w_ms:.3f} ms a step (host clock), card busy "
+                  f"{b_ms:.3f} ms (idle share {1 - b_ms / w_ms:.3f})",
+                  flush=True)
+        print(f"phase 8: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return launches
+    finally:
+        if old_cache is None:
+            os.environ.pop("DESIRE_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["DESIRE_TORCH_CACHE_DIR"] = old_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_forward_card_vs_cpu(scfg, sp, rng):
     """desire_forward(train=False) through the kernels on the card against
     the plain versions on the CPU (float32, the same params, inputs and
@@ -1429,7 +1830,10 @@ def main():
     # -- 7. the layer-by-layer IOC path -----------------------------------------
     kernels += unfused_phase(dev, smi, rng, params)
 
-    # -- 8. results -------------------------------------------------------------
+    # -- 8. the training entry point --------------------------------------------
+    entry_point_phase(dev, smi, rng)
+
+    # -- 9. results -------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1439,4 +1843,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-check"]:   # phase 8d's own process
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.path.insert(0, ROOT)
+        resume_check(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

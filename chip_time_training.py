@@ -8,8 +8,8 @@ medians:
   (``torch.profiler``'s device time by kernel name), on positions uniform
   in [0.15, 0.85] (as the path's lie) and on ``chip_smoke``'s check inputs
   (a quarter on grid nodes, a quarter outside [0, 1]);
-* nll: the NLL backward against its bound, by CUDA events and by its
-  device time (``torch.profiler``);
+* nll: the NLL forward and backward against their bounds, by CUDA events
+  and by their device time (``torch.profiler``);
 * steps: the training step with its split (loss forward, backward,
   optimizer and the rest) by default, with social_freeze, fused_train=False
   (with remat off and on) and use_social=False, each timed after WARMUP
@@ -100,22 +100,25 @@ def time_pool_bwd(cs, tag, cfg, rng, dev):
               f"{parts})", flush=True)
 
 
-def time_nll_bwd(cs, tag, cfg, rng, dev):
-    """The NLL backward against its bound."""
+def time_nll(cs, tag, cfg, rng, dev):
+    """The NLL forward and backward against their bounds."""
     from desire_tpu_torch.ops import nll
     n = cfg.batch_size * cfg.max_num_obj
     raw5, target, mask = cs.nll_inputs(n, cfg.num_samples, cfg.pred_len, rng,
                                        dev)
     gn = torch.as_tensor(rng.standard_normal((n, cfg.num_samples)).astype(
         np.float32), device=dev)
-    fn = lambda: nll.nll_bwd_cuda(raw5, target, mask, gn)
-    for _ in range(200):  # a ~25 us kernel: let the card's clocks settle
-        fn()
-    ms = cs.time_ms(fn, repeats=5, iters=100)
-    dev_ms = sum(cs.device_ms_by_kernel(fn, calls=100).values())
-    nb, fl = cs.nll_work(n, cfg.num_samples, cfg.pred_len, backward=True)
-    print(f"{tag}: nll_bwd ms {ms:.4f}, device time {dev_ms:.4f} (bound "
-          f"{cs.bound(nb, fl, 'f32')[0]:.4f})", flush=True)
+    for name, fn, bwd in (
+            ("nll_fwd", lambda: nll.nll_fwd_cuda(raw5, target, mask), False),
+            ("nll_bwd", lambda: nll.nll_bwd_cuda(raw5, target, mask, gn),
+             True)):
+        for _ in range(200):  # a ~10-25 us kernel: let the clocks settle
+            fn()
+        ms = cs.time_ms(fn, repeats=5, iters=100)
+        dev_ms = sum(cs.device_ms_by_kernel(fn, calls=100).values())
+        nb, fl = cs.nll_work(n, cfg.num_samples, cfg.pred_len, backward=bwd)
+        print(f"{tag}: {name} ms {ms:.4f}, device time {dev_ms:.4f} (bound "
+              f"{cs.bound(nb, fl, 'f32')[0]:.4f})", flush=True)
 
 
 def time_steps(cs, tag, cfg, params, rng, dev):
@@ -161,7 +164,8 @@ def main():
     ap.add_argument("--label", default=None, help="printed with every line")
     ap.add_argument("--parts", default="ioc,pool,nll,steps",
                     help="what to time, of ioc (the IOC backward), pool (the "
-                    "scene-pool gradient), nll (the NLL backward) and steps")
+                    "scene-pool gradient), nll (the NLL forward and "
+                    "backward) and steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_time_training: no CUDA device visible", file=sys.stderr)
@@ -188,7 +192,7 @@ def main():
     if "pool" in parts:
         time_pool_bwd(cs, tag, cfg, rng, dev)
     if "nll" in parts:
-        time_nll_bwd(cs, tag, cfg, rng, dev)
+        time_nll(cs, tag, cfg, rng, dev)
     if "steps" in parts:
         time_steps(cs, tag, cfg, params, rng, dev)
     return 0

@@ -15,7 +15,11 @@ Ported so far:
 * training: ``train.trainer.make_train_step`` / ``run_epoch`` ->
   ``models.desire.desire_loss`` and Adam (``train/state.py``), through the
   training IOC forward and its backward (``ops/ioc_fused.py``,
-  ``ops/ioc_bwd.py``) and the fused bivariate NLL (``ops/nll.py``).
+  ``ops/ioc_bwd.py``) and the fused bivariate NLL (``ops/nll.py``);
+* the training entry point: ``python -m desire_tpu_torch.train``
+  (``train/run.py``) over the SDD loader (``data/``), with checkpoints
+  (``train/checkpoint.py``), held-out evaluation (``eval/sampler.py``) and
+  ``serve.Predictor.from_checkpoint``.
 """
 
 from desire_tpu_torch.config import DesireConfig

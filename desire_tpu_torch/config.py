@@ -444,6 +444,10 @@ _PRE_FEATURE_DEFAULTS = {
     "learn_bound": False,    # learned vel_gain/vel_floor scalars (adds params)
     "input_norm": False,     # scale-free encoding (changes embed width)
     "speed_norm": False,     # speed-adaptive residual bound (changes decode math)
+    # the prior lanes and their NLL term: a config.json written before them
+    # trained with every lane on the posterior and no prior-lane loss
+    "prior_lane_frac": 0.0,
+    "w_prior_nll": 0.0,
 }
 
 

@@ -77,7 +77,8 @@ def uses_fused_train_ioc(cfg: DesireConfig) -> bool:
 
 def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                    generator=None, k_samples=None, train=False,
-                   kernel_weights=None, keep_x=None, keep_y=None):
+                   kernel_weights=None, keep_x=None, keep_y=None,
+                   z_temp=None):
     """End-to-end forward. Returns a dict of the stage outputs.
 
     eps: optional latent noise (B*A, K, lat); keep_x / keep_y: optional
@@ -85,6 +86,8 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
     (B*A, To, emb) and (B*A, Tf, emb); whatever is not given is drawn from
     generator. kernel_weights: from :func:`pack_kernel_weights` for these
     params (inference); without them each kernel call packs its own.
+    z_temp: optional (B, A) per-agent latent temperature of the inference
+    draws (``sgm.sgm_forward``).
     A model with cfg.scene_image_channels > 0 sees a zero imagery raster.
     Inference runs without autograd; train=True records the graph for
     :func:`desire_loss`."""
@@ -92,11 +95,11 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
         return _forward(params, cfg, xy, mask, ids, eps=eps,
                         generator=generator, k_samples=k_samples,
                         train=train, kernel_weights=kernel_weights,
-                        keep_x=keep_x, keep_y=keep_y)
+                        keep_x=keep_x, keep_y=keep_y, z_temp=z_temp)
 
 
 def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
-             train, kernel_weights, keep_x, keep_y):
+             train, kernel_weights, keep_x, keep_y, z_temp):
     if cfg.mesh_data * cfg.mesh_k > 1:
         raise NotImplementedError("meshed execution is not ported")
     K = k_samples or cfg.num_samples
@@ -113,7 +116,9 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
         fut_xy.reshape(n, *fut_xy.shape[2:]) if train else None,
         fut_mask.reshape(n, -1) if train else None,
         eps=eps, generator=generator, k_samples=K, train=train,
-        keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"))
+        keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"),
+        z_temp=(None if z_temp is None
+                else z_temp.reshape(n, 1, 1).float()))
 
     tf_len = fut_xy.shape[2]
     traj = out["traj_mu"].reshape(b, a, K, tf_len, 2)

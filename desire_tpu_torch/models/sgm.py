@@ -298,7 +298,8 @@ def _keep_mask(keep, shape, keep_prob, generator, device):
 
 def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
                 fut_mask=None, *, eps=None, generator=None, k_samples=None,
-                train=False, keep_x=None, keep_y=None, sampler_weights=None):
+                train=False, keep_x=None, keep_y=None, sampler_weights=None,
+                z_temp=None):
     """SGM pass over flattened agent rows.
 
     obs_xy (N, To, 2) absolute normalized, obs_mask (N, To); in training
@@ -311,8 +312,12 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
     (conditional) prior, eps scaled by the learned temperature when the
     model has one. Training: z = mu + sigma * eps from the posterior, except
     the first round(K * prior_lane_frac) lanes, which draw from the prior
-    with the temperature-scaled noise. sampler_weights: the fused sampler's
-    kernel weights (``ops.pack_sampler``), packed per call when not given.
+    with the temperature-scaled noise. z_temp: optional (N, 1, 1)
+    per-agent temperature of the inference draws (an eval-time spread knob,
+    z = mu_p + sigma_p * z_temp * eps), times the learned temperature where
+    the model has one; ignored in training. sampler_weights: the fused
+    sampler's kernel weights (``ops.pack_sampler``), packed per call when
+    not given.
     Returns a dict of absolute-position Gaussians for K hypotheses."""
     K = k_samples or cfg.num_samples
     n = obs_xy.shape[0]
@@ -337,7 +342,11 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
     rho = temporal_features(p, enc_rel.to(cd), obs_mask.to(cd))
     rho_seed = torch.relu(L.dense(p["rho_proj"], rho))
 
-    z_temp = _learned_z_temp(p, cfg, rel_obs, obs_mask)
+    # the learned temperature: at inference it multiplies the given one; in
+    # training it scales only the prior lanes' noise
+    lt = _learned_z_temp(p, cfg, rel_obs, obs_mask)
+    if not train and lt is not None:
+        z_temp = lt if z_temp is None else z_temp * lt
 
     if eps is None:
         eps = torch.randn((n, K, lat), generator=generator,
@@ -395,7 +404,7 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
             if k_prior > 0:
                 # the first lanes sample the prior, with the learned
                 # temperature on their noise
-                eps_pr = eps if z_temp is None else eps * z_temp.to(eps.dtype)
+                eps_pr = eps if lt is None else eps * lt.to(eps.dtype)
                 z_pr = eps_pr
                 if mu_p is not None:
                     z_pr = (mu_p[:, None]

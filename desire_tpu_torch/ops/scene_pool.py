@@ -37,8 +37,10 @@ def corners(pos, g):
     """Align-corners bilinear corners of positions (..., 2) clamped to
     [0, 1] on the G x G grid: flat node indices and float32 weights, each
     in the order (x0,y0) (x1,y0) (x0,y1) (x1,y1), and the fractional parts
-    fx, fy."""
-    xy = torch.clamp(pos.float(), 0.0, 1.0) * (g - 1)
+    fx, fy. A NaN coordinate clamps to 0, as fmaxf / fminf clamp it in
+    the kernels (an index from NaN would be out of range)."""
+    xy = torch.clamp(torch.nan_to_num(pos.float(), nan=0.0), 0.0, 1.0) \
+        * (g - 1)
     x0f, y0f = torch.floor(xy[..., 0]), torch.floor(xy[..., 1])
     fx, fy = xy[..., 0] - x0f, xy[..., 1] - y0f
     x0, y0 = x0f.long(), y0f.long()

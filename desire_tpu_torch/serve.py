@@ -10,13 +10,14 @@ The future is unknown at serving time, so the future mask is 1 across the
 whole horizon for every agent live at the last observed step: refinement and
 scores cover all ``pred_len`` steps.
 
-Restoring a checkpoint comes with the training slice; for now a Predictor
-takes an explicit ``(params, cfg, device)``.
+A Predictor takes an explicit ``(params, cfg, device)``, or restores a
+training checkpoint (``Predictor.from_checkpoint``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import numpy as np
@@ -25,7 +26,9 @@ import torch
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.eval import metrics as M
 from desire_tpu_torch.models import desire
-from desire_tpu_torch.params import to_device
+from desire_tpu_torch.params import init_desire, to_device
+from desire_tpu_torch.train import checkpoint as ckpt_mod
+from desire_tpu_torch.train.state import create_train_state
 
 
 class Predictor:
@@ -62,6 +65,36 @@ class Predictor:
         self._gen.manual_seed(seed)
         self._calls = 0
         self._latencies_ms: list[float] = []
+
+    @classmethod
+    def from_checkpoint(cls, save_dir: str, *, best: bool = False,
+                        device="cuda", cfg: DesireConfig | None = None,
+                        k_samples=None, max_windows: int = 8,
+                        seed: int = 0) -> "Predictor":
+        """Restore the params of a training run's latest checkpoint in
+        ``save_dir`` (``<save_dir>/best`` with best=True). The model's
+        geometry comes from the saved config (``best/config.json`` first,
+        which carries the fitted rank blend), laid over ``cfg`` (default
+        ``DesireConfig()``)."""
+        saved = None
+        if best:
+            saved = ckpt_mod.load_config(os.path.join(save_dir, "best"))
+        if saved is None:
+            saved = ckpt_mod.load_config(save_dir)
+        if saved is None:
+            raise FileNotFoundError(f"no config.json in {save_dir}")
+        cfg = ckpt_mod.overlay_geometry(cfg or DesireConfig(), saved)
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Predictor(device='cuda') needs a CUDA device")
+        template = create_train_state(cfg, to_device(init_desire(
+            cfg, torch.Generator().manual_seed(cfg.seed), "cpu"), dev))
+        ckpt_dir = os.path.join(save_dir, "best") if best else save_dir
+        got = ckpt_mod.CheckpointManager(ckpt_dir).restore(template)
+        if got is None:
+            raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+        return cls(got[0].params, cfg, device=dev, k_samples=k_samples,
+                   max_windows=max_windows, seed=seed)
 
     def _forward(self, xy, mask, ids, eps):
         out = desire.desire_forward(

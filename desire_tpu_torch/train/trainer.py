@@ -9,6 +9,7 @@ step + 1. Every random draw comes from the state's generator.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable
 
@@ -68,27 +69,63 @@ class NonFiniteLossError(RuntimeError):
     fast instead of carrying NaN parameters on."""
 
 
-def _to_device(batch, device):
-    return tuple(torch.as_tensor(np.asarray(x, dtype=np.float32),
-                                 device=device)
-                 for x in (batch.xy, batch.mask, batch.ids))
+def make_eval_forward(cfg: DesireConfig, k_samples=None) -> Callable:
+    """fwd(params, xy, mask, ids, eps=None, generator=None, z_temp=None) ->
+    ``desire_forward(train=False)``'s outputs: the latent noise from eps
+    (B*A, K, lat) when given, else from generator; z_temp the optional
+    (B, A) latent temperature."""
+    def fwd(params, xy, mask, ids, eps=None, generator=None, z_temp=None):
+        return desire.desire_forward(params, cfg, xy, mask, ids, eps=eps,
+                                     generator=generator,
+                                     k_samples=k_samples, train=False,
+                                     z_temp=z_temp)
+    return fwd
+
+
+def stage_to_device(arrays, device) -> tuple:
+    """numpy arrays -> float32 tensors of their shapes on ``device``, in one
+    copy: on CUDA through one pinned host buffer and one asynchronous copy,
+    with no fallback to the CPU (a CUDA device that is missing raises); on
+    the CPU as views of one buffer."""
+    arrs = [np.asarray(a, np.float32) for a in arrays]
+    sizes = [a.size for a in arrs]
+    device = torch.device(device)
+    if device.type == "cuda":
+        host = torch.empty(sum(sizes), dtype=torch.float32, pin_memory=True)
+        np.concatenate([a.reshape(-1) for a in arrs], out=host.numpy())
+        flat = host.to(device, non_blocking=True)
+    else:
+        flat = torch.from_numpy(
+            np.concatenate([a.reshape(-1) for a in arrs])).to(device)
+    return tuple(x.view(a.shape) for x, a in
+                 zip(torch.split(flat, sizes), arrs))
+
+
+def batch_to_device(batch, device) -> tuple:
+    """A host batch -> (xy, mask, ids) float32 tensors on ``device``, in one
+    copy (``stage_to_device``). A batch's scene raster stays on the host:
+    the port's model takes no imagery yet."""
+    return stage_to_device([batch.xy, batch.mask, batch.ids], device)
 
 
 def run_epoch(state: TrainState, loader, epoch: int, step_fn,
               log_fn=None, log_every: int = 20, start_batch: int = 0,
               max_batches: int | None = None, max_bad_steps: int = 3):
     """Drive one epoch over ``loader.epoch_batches(epoch, start_batch)``
-    (batches with xy, mask and ids arrays; the loader also carries
-    ``cfg.batch_size``). The batches go to the params' device. Returns
+    (batches with xy, mask and ids arrays), at most max_batches of them.
+    The batches go to the params' device (``batch_to_device``). Returns
     (state, mean loss)."""
     device = tree_leaves(state.params)[0].device
     losses_acc, t0 = [], time.time()
     bad = 0
-    for bi, batch in enumerate(loader.epoch_batches(epoch, start_batch),
-                               start=start_batch):
-        if max_batches is not None and bi - start_batch >= max_batches:
-            break
-        xy, mask, ids = _to_device(batch, device)
+    batches = loader.epoch_batches(epoch, start_batch)
+    if max_batches is not None:
+        # stop before the loader assembles the next batch: its position
+        # (loader.state, which a checkpoint records) stays at the last
+        # batch trained
+        batches = itertools.islice(batches, max_batches)
+    for bi, batch in enumerate(batches, start=start_batch):
+        xy, mask, ids = batch_to_device(batch, device)
         state, metrics = step_fn(state, xy, mask, ids)
         if bi % log_every == 0:
             # the finiteness check rides the logging cadence: reading a

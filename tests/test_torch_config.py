@@ -23,7 +23,24 @@ def test_fields_and_defaults_match():
     tf = [(f.name, f.type, f.default) for f in
           dataclasses.fields(tconfig.DesireConfig)]
     assert tf == jf
-    assert tconfig._PRE_FEATURE_DEFAULTS == jconfig._PRE_FEATURE_DEFAULTS
+    # the port's copy adds the prior-lane keys the JAX dict lacks (an old
+    # config.json resumes without prior lanes), nothing else
+    assert tconfig._PRE_FEATURE_DEFAULTS == dict(
+        jconfig._PRE_FEATURE_DEFAULTS, prior_lane_frac=0.0, w_prior_nll=0.0)
+
+
+def test_old_config_loads_without_prior_lanes():
+    """A config.json written before prior_lane_frac and w_prior_nll existed
+    loads into the port with both at 0.0, not today's defaults."""
+    new = tconfig.DesireConfig()
+    assert new.prior_lane_frac > 0 and new.w_prior_nll > 0
+    d = json.loads(new.to_json())
+    del d["prior_lane_frac"], d["w_prior_nll"]
+    old = tconfig.DesireConfig.from_json(json.dumps(d))
+    assert old.prior_lane_frac == 0.0 and old.w_prior_nll == 0.0
+    # every other field as saved
+    assert old.replace(prior_lane_frac=new.prior_lane_frac,
+                       w_prior_nll=new.w_prior_nll) == new
 
 
 @pytest.mark.parametrize("kw", [
@@ -74,12 +91,17 @@ def test_flags_match():
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter: desire_tpu_torch, all its submodules,
-    chip_smoke, chip_time_training and chip_time_serving, and then neither
-    jax nor desire_tpu is loaded."""
+    """In a fresh interpreter: desire_tpu_torch, all its submodules (the
+    data loader, the eval harness, the checkpoint and the training entry
+    point by name), chip_smoke, chip_time_training and chip_time_serving,
+    and then neither jax nor desire_tpu is loaded."""
     code = """
 import importlib, pkgutil, sys
 import desire_tpu_torch
+import desire_tpu_torch.data.loader
+import desire_tpu_torch.eval.sampler
+import desire_tpu_torch.train.checkpoint
+import desire_tpu_torch.train.run
 for m in pkgutil.walk_packages(desire_tpu_torch.__path__, "desire_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
@@ -96,7 +118,7 @@ print(len([n for n in sys.modules if n.startswith("desire_tpu_torch")]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25
 
 
 def test_timing_script_needs_a_card():

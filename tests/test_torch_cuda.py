@@ -535,3 +535,98 @@ def test_scene_pool_forward_of_no_points(cuda_device, dtype, b, p):
         torch.zeros((b, p, 2), device=cuda_device))
     torch.cuda.synchronize()
     assert out.shape == (b, p, 32) and out.dtype == cd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,t,offset", [
+    (37, 7, 1, 0), (50, 13, 20, 0), (40, 5, 8, 0), (11, 3, 6, 0),
+    (10, 9, 100, 0), (1, 1, 4, 0), (33, 20, 12, 1), (40, 1, 400, 0),
+    (12, 20, 400, 0), (9, 5, 37, 0), (6, 3, 400, 3)])
+def test_nll_forward_kernel_odd_shapes(cuda_device, n, k, t, offset):
+    """The NLL forward's staging at shapes off the flagship's: K not a
+    multiple of a block's 32 lanes (blocks straddle rows n), T = 1 and 6
+    (rows read float by float), T = 20 (16-byte pieces), T = 8 (a row of
+    10 pieces padded to 11), T = 100 and 400 (the steps staged in chunks of
+    32, the last one partial; at K = 1 a block covers 33 rows n), T = 37
+    (float by float in chunks), and raw5 not 16-byte aligned (offset:
+    floats into its buffer)."""
+    from desire_tpu_torch.ops import nll
+    rng = np.random.default_rng(t)
+    raw5 = rng.standard_normal((n, k, t, 5)) * 0.5
+    tgt = rng.uniform(0.2, 0.8, (n, t, 2))
+    raw5[..., :2] += tgt[:, None]
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                  device=cuda_device)
+    buf = torch.zeros(raw5.size + offset, device=cuda_device)
+    buf[offset:] = f(raw5).reshape(-1)
+    r = buf[offset:].view(n, k, t, 5)
+    tgt, mask = f(tgt), f(rng.random((n, t)) > 0.1)
+    before = _build.LAUNCHES["nll_fwd"]
+    got = nll.nll_fwd_cuda(r, tgt, mask)
+    assert _build.LAUNCHES["nll_fwd"] == before + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(), nll.bivariate_nll_plain(r, tgt, mask).cpu().numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_short_eval_batch_through_serving_kernels(cuda_device):
+    """A short last eval batch (B = 3 of a batch size of 8) through
+    make_eval_step on the card (the sampler and IOC kernels) against the
+    same step on the CPU (their plain versions), float32, the same noise:
+    the best-of-K errors agree."""
+    from desire_tpu_torch.eval.sampler import make_eval_step
+    cfg = _cfg(batch_size=8)
+    p = _params(cfg, "cpu")
+    rng = np.random.default_rng(0)
+    b, a, tt = 3, cfg.max_num_obj, cfg.total_len
+    xy = (np.cumsum(rng.normal(0, 0.02, (b, tt, a, 2)), 1) + 0.5)
+    mask = np.ones((b, tt, a))
+    mask[:, :, -1] = 0.0
+    ids = np.tile(np.arange(1, a + 1), (b, 1)) * (mask[:, 0] > 0)
+    scale = np.array([300.0, 500.0, 800.0])
+    eps = rng.standard_normal((b * a, cfg.num_samples, cfg.latent_size))
+    step = make_eval_step(cfg, horizon_steps=(3.0,))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        before = (_build.LAUNCHES["sgm_sample"], _build.LAUNCHES["ioc_refine"])
+        res[str(dev)] = step(to_device(p, dev), f(xy), f(mask), f(ids),
+                             f(scale), eps=f(eps))
+    assert (_build.LAUNCHES["sgm_sample"], _build.LAUNCHES["ioc_refine"]) \
+        == (before[0] + 1, before[1] + 1)
+    card, cpu = res[str(cuda_device)], res["cpu"]
+    np.testing.assert_array_equal(card["valid"], cpu["valid"])
+    for name in ("ade", "fde", "sgm_ade", "sgm_fde", "speed"):
+        # positions within 2e-4 relative, times scales of a few hundred px
+        np.testing.assert_allclose(card[name], cpu[name], rtol=1e-3,
+                                   atol=1e-2, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_checkpoint_roundtrip_of_a_cuda_generator(cuda_device, tmp_path):
+    """A CUDA training generator's state restores onto a CUDA generator
+    (the same draws after the restore as after the save), with the params
+    and Adam moments bit for bit; a CPU template refuses it."""
+    from desire_tpu_torch.data.loader import LoaderState
+    from desire_tpu_torch.train.checkpoint import CheckpointManager
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    cfg = _cfg()
+    st = create_train_state(cfg, _params(cfg, cuda_device))
+    st.mu = to_device(st.params, cuda_device)
+    torch.randn(7, generator=st.generator, device=cuda_device)
+    st.step, st.count = 3, 3
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.save(st, LoaderState(1, 2), cfg)
+    want = torch.randn(5, generator=st.generator, device=cuda_device)
+    tmpl = create_train_state(cfg, _params(cfg, cuda_device), seed=9)
+    got, lst = mgr.restore(tmpl)
+    assert got.generator.device.type == "cuda"
+    assert torch.equal(torch.randn(5, generator=got.generator,
+                                   device=cuda_device), want)
+    for x, y in zip(tree_leaves(st.params) + tree_leaves(st.mu),
+                    tree_leaves(got.params) + tree_leaves(got.mu)):
+        assert y.is_cuda and torch.equal(x, y)
+    assert (got.step, got.count, lst.epoch, lst.batch_index) == (3, 3, 1, 2)
+    with pytest.raises(ValueError):
+        mgr.restore(create_train_state(cfg, _params(cfg, "cpu")))

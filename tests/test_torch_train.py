@@ -15,11 +15,12 @@ import pytest
 import torch
 
 from desire_tpu.config import DesireConfig
-from desire_tpu.data.loader import SDDLoader
+from desire_tpu.data.loader import SDDLoader as JaxSDDLoader
 from desire_tpu.models import desire as jdesire
 from desire_tpu.models import sgm as jsgm
 from desire_tpu.train import state as jstate
 from desire_tpu.train import trainer as jtrainer
+from desire_tpu_torch.data.loader import SDDLoader
 from desire_tpu_torch.models import desire as tdesire
 from desire_tpu_torch.models import sgm as tsgm
 from desire_tpu_torch.params import from_jax, init_desire, to_numpy
@@ -319,8 +320,9 @@ def _micro_dataset(root, frames=60):
     return str(root)
 
 
-def test_run_epoch_on_sdd_loader_batches(tmp_path, jax_params):
-    """The port's epoch loop over the JAX SDDLoader's batches."""
+def test_run_epoch_on_sdd_loader_batches(tmp_path, jax_params, monkeypatch):
+    """The port's epoch loop over the port's SDDLoader's batches."""
+    monkeypatch.setenv("DESIRE_TORCH_CACHE_DIR", str(tmp_path / "cache"))
     cfg = _cfg(data_dir=_micro_dataset(tmp_path), subsample=2, window_hop=2,
                batch_size=2, max_num_obj=4, save_dir="")
     loader = SDDLoader(cfg, use_native=False)
@@ -332,6 +334,50 @@ def test_run_epoch_on_sdd_loader_batches(tmp_path, jax_params):
     assert state.step == 2 and len(logged) == 2
     assert np.isfinite(mean_loss)
     assert all(np.isfinite(m["grad_norm"]) for m in logged)
+
+
+def test_run_epoch_same_losses_on_both_loaders(tmp_path, jax_params,
+                                                monkeypatch):
+    """The port's epoch loop gives the same losses, bit for bit, over the
+    JAX SDDLoader's batches as over the port's: the two loaders stay held
+    together."""
+    monkeypatch.setenv("DESIRE_CACHE_DIR", str(tmp_path / "jcache"))
+    monkeypatch.setenv("DESIRE_TORCH_CACHE_DIR", str(tmp_path / "tcache"))
+    cfg = _cfg(data_dir=_micro_dataset(tmp_path), subsample=2, window_hop=2,
+               batch_size=2, max_num_obj=4, save_dir="")
+    losses = []
+    for loader in (JaxSDDLoader(cfg, use_native=False),
+                   SDDLoader(cfg, use_native=False)):
+        state = tstate.create_train_state(cfg, from_jax(jax_params))
+        logged = []
+        ttrainer.run_epoch(
+            state, loader, 1,
+            ttrainer.make_train_step(cfg, loader.num_batches),
+            log_fn=lambda m, st: logged.append(m["loss"]), log_every=1,
+            max_batches=2)
+        losses.append(logged)
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
+
+
+def test_run_epoch_stops_the_loader_at_max_batches(tmp_path, monkeypatch):
+    """With max_batches, the loader's position (what a checkpoint records)
+    is the batch after the last one trained, not one further."""
+    monkeypatch.setenv("DESIRE_TORCH_CACHE_DIR", str(tmp_path / "cache"))
+    cfg = _cfg(data_dir=_micro_dataset(tmp_path), subsample=2, window_hop=2,
+               batch_size=2, max_num_obj=4, save_dir="")
+    loader = SDDLoader(cfg, use_native=False)
+    assert loader.num_batches > 3
+
+    def step_fn(state, xy, mask, ids):
+        state = tstate.TrainState(state.step + 1, state.params, state.mu,
+                                  state.nu, state.count, state.generator)
+        return state, {"loss": torch.tensor(1.0)}
+
+    st = tstate.create_train_state(cfg, {"w": torch.zeros(2)})
+    st, _ = ttrainer.run_epoch(st, loader, 0, step_fn, start_batch=1,
+                               max_batches=2)
+    assert st.step == 2
+    assert (loader.state.epoch, loader.state.batch_index) == (0, 3)
 
 
 def test_run_epoch_raises_after_max_bad_steps():
