@@ -55,7 +55,20 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    started with cuBLAS's deterministic workspace), serves
    64 windows from the best checkpoint, and times the step through the
    entry point, the loader, a checkpoint save and an eval batch;
-9. prints one JSON line of per-kernel results, then, last, the device line.
+9. evaluation and forecasting on phase 8's tree and best checkpoint:
+   ``python -m desire_tpu_torch.evaluate`` with the calibration fit,
+   horizons and a dump, in a process of its own (exit 0, the JAX script's
+   result keys, finite values, the dump's shapes) and in this one;
+   ``predict`` in file mode over the tree's CSVs and in stream mode over
+   a video's frames (the JAX server's schedule); a two-chunk
+   ``make_rollout`` on a held-out batch; ``bench_serve`` at 64 windows;
+   the imagery raster (scene_image_channels=1, the loader's occupancy
+   rasters) through a bf16 serving forward and a float32 forward and
+   training step; every serving kernel call of these paths, recorded, is
+   held against its plain version on the inputs it was given, and the
+   float32 forward and step against the plain ones; then times them;
+10. prints one JSON line of per-kernel results (launches of phases 4, 6,
+   7 and 9), then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -189,13 +202,14 @@ def check_close(name, got, ref, rtol, atol):
     return mx
 
 
-def check_bf16(name, got, ref):
+def check_bf16(name, got, ref, verbose=True):
     mx, mean = errors(got, ref)
     ok = (bool(torch.isfinite(got).all()) and mx <= BF16_TOL[name]
           and mean <= BF16_MEAN_TOL[name])
-    print(f"  {name}: max_abs_err={mx:.3e} (<= {BF16_TOL[name]}) "
-          f"mean_abs_err={mean:.3e} (<= {BF16_MEAN_TOL[name]}) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if verbose or not ok:
+        print(f"  {name}: max_abs_err={mx:.3e} (<= {BF16_TOL[name]}) "
+              f"mean_abs_err={mean:.3e} (<= {BF16_MEAN_TOL[name]}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{name}: bf16 kernel disagrees with its plain "
                              f"version (max {mx:.3e}, mean {mean:.3e})")
@@ -1317,6 +1331,29 @@ def recorded_serving_calls():
         ops.sgm_sample_decode, ops.ioc_refine = saved
 
 
+def check_recorded_calls(calls, verbose=True):
+    """Hold each recorded bf16 serving kernel call (recorded_serving_calls)
+    against its plain version on the inputs that call was given (BF16_TOL,
+    BF16_MEAN_TOL; verbose=False prints only failures). Returns {kernel
+    name: [calls checked, max abs error]}."""
+    from desire_tpu_torch.ops import ioc_fused, sgm_fused
+    out = {}
+    for name, a, kw, got in calls:
+        kw = {k: v for k, v in kw.items() if k != "weights"}
+        if name == "sgm_sample":
+            ref = sgm_fused.sgm_sample_decode_plain(*a, **kw)
+            keys = ("dec_h", "hx")
+        else:
+            ref = ioc_fused.ioc_refine_plain(*a, **kw)
+            keys = ("refined", "scores")
+        row = out.setdefault(name, [0, 0.0])
+        row[0] += 1
+        for key, x, y in zip(keys, got, ref):
+            row[1] = max(row[1], check_bf16(key, x, y, verbose))
+        del ref
+    return out
+
+
 def resume_check(data_dir, tmp):
     """Phase 8d, in a process of its own started with cuBLAS's
     deterministic workspace (CUBLAS_WORKSPACE_CONFIG): 4 steps of the entry
@@ -1379,7 +1416,6 @@ def entry_point_phase(dev, smi, rng):
     from desire_tpu_torch.data.native import fast_csv
     from desire_tpu_torch.eval.sampler import evaluate
     from desire_tpu_torch.models.desire import desire_forward
-    from desire_tpu_torch.ops import ioc_fused, sgm_fused
     from desire_tpu_torch.serve import Predictor
     from desire_tpu_torch.train import checkpoint as ckpt_mod
     from desire_tpu_torch.train import run
@@ -1478,16 +1514,7 @@ def entry_point_phase(dev, smi, rng):
         if sorted(c[0] for c in calls) != ["ioc_refine", "sgm_sample"]:
             raise AssertionError(f"the short batch's forward called "
                                  f"{[c[0] for c in calls]}")
-        for name, a, kw, got in calls:
-            kw = {k: v for k, v in kw.items() if k != "weights"}
-            if name == "sgm_sample":
-                ref = sgm_fused.sgm_sample_decode_plain(*a, **kw)
-                keys = ("dec_h", "hx")
-            else:
-                ref = ioc_fused.ioc_refine_plain(*a, **kw)
-                keys = ("refined", "scores")
-            for key, x, y in zip(keys, got, ref):
-                check_bf16(key, x, y)
+        check_recorded_calls(calls)
         del calls
         # the whole forward of the batch in float32: kernels vs plain
         cfg32 = cfg.replace(compute_dtype="float32")
@@ -1592,13 +1619,405 @@ def entry_point_phase(dev, smi, rng):
                   f"{b_ms:.3f} ms (idle share {1 - b_ms / w_ms:.3f})",
                   flush=True)
         print(f"phase 8: {time.perf_counter() - t_phase:.1f} s", flush=True)
-        return launches
+
+        # -- 9. evaluation and forecasting on phase 8's tree and best/ -------
+        return forecast_phase(dev, smi, rng, cfg, data_dir, save_dir,
+                              eval_loader, tmp)
     finally:
         if old_cache is None:
             os.environ.pop("DESIRE_TORCH_CACHE_DIR", None)
         else:
             os.environ["DESIRE_TORCH_CACHE_DIR"] = old_cache
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the keys of the JAX package's evaluate.py result line at phase 9's flags
+# (desire_tpu/eval/sampler.py evaluate: --horizons, --calibration with the
+# train-split fit); "rank_blend" only where the blend is not 0, the along-
+# and cross-track errors where a step has a ground-truth tangent
+EVAL_KEYS = {"minADE_px", "minFDE_px", "top1ADE_px", "num_agents", "K",
+             "sgm_minADE_px", "sgm_minFDE_px", "rank_top1_pctile",
+             "rank_score_corr", "horizons", "calibration"}
+EVAL_OPTIONAL_KEYS = {"rank_blend", "alongADE_px", "crossADE_px"}
+EVAL_HORIZON_KEYS = {"minADE_px", "minFDE_px", "top1ADE_px", "top1FDE_px",
+                     "minADE_px_fifth", "minFDE_px_fifth", "num_agents"}
+EVAL_CALIBRATION_KEYS = {"pit_ks", "coverage_50", "coverage_90", "pit_hist",
+                         "sigma_temp", "pit_ks_cal", "coverage_50_cal",
+                         "coverage_90_cal", "sigma_fit"}
+DUMP_KEYS = ("obs_xy", "obs_mask", "fut_xy", "fut_mask", "traj", "scores",
+             "best", "live", "video", "scale")
+
+
+def check_eval_result(res, horizons):
+    """evaluate's result line: the JAX script's keys, finite numbers."""
+    keys = set(res)
+    if not EVAL_KEYS <= keys <= EVAL_KEYS | EVAL_OPTIONAL_KEYS:
+        raise AssertionError(f"evaluate's result keys {sorted(keys)}")
+    if sorted(res["horizons"]) != [f"{float(h):.1f}s" for h in horizons] \
+            or any(set(v) != EVAL_HORIZON_KEYS
+                   for v in res["horizons"].values()):
+        raise AssertionError(f"evaluate's horizons {res['horizons']}")
+    if set(res["calibration"]) != EVAL_CALIBRATION_KEYS:
+        raise AssertionError(f"evaluate's calibration keys "
+                             f"{sorted(res['calibration'])}")
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [y for v in x.values() for y in numbers(v)]
+        if isinstance(x, list):
+            return [y for v in x for y in numbers(v)]
+        return [x]
+    vals = np.asarray(numbers(res), np.float64)
+    if not np.isfinite(vals).all() or res["num_agents"] <= 0:
+        raise AssertionError("evaluate's result has a non-finite value or "
+                             "no agents")
+
+
+def check_forecast_line(rec, cfg, top_k=5):
+    """One forecast_to_json line: agents with id, top1 (Tf, 2), the top_k
+    scores and hypotheses (top_k, Tf, 2) (at most K of them), finite, in
+    the scene's pixels."""
+    top_k = min(top_k, cfg.num_samples)
+    if not rec["agents"]:
+        raise AssertionError("a forecast without agents")
+    for ag in rec["agents"]:
+        top1 = np.asarray(ag["top1"], np.float64)
+        hyp = np.asarray(ag["hypotheses"], np.float64)
+        if set(ag) != {"id", "top1", "scores", "hypotheses"} \
+                or top1.shape != (cfg.pred_len, 2) \
+                or hyp.shape != (top_k, cfg.pred_len, 2) \
+                or len(ag["scores"]) != top_k or ag["id"] == 0 \
+                or not (np.isfinite(top1).all() and np.isfinite(hyp).all()
+                        and np.isfinite(ag["scores"]).all()) \
+                or np.abs(top1).max() > 3000.0:
+            raise AssertionError(f"a malformed forecast of agent "
+                                 f"{ag.get('id')}")
+
+
+def forecast_phase(dev, smi, rng, cfg, data_dir, save_dir, eval_loader,
+                   tmp):
+    """Phase 9: the evaluation and forecasting entry points on phase 8's
+    tree and its best/ checkpoint at the flagship width: (a) ``python -m
+    desire_tpu_torch.evaluate`` with the calibration fit, horizons and a
+    dump, in a process of its own and in this one; (b) ``predict`` in file
+    mode over the tree's CSVs and in stream mode over a video's frames;
+    (c) ``make_rollout`` of two chunks on a held-out batch; (d)
+    ``bench_serve``; (e) the imagery raster through a serving forward and
+    a training step. Every serving kernel call of (a)-(c) and (e) is held
+    against its plain version on its own inputs. Returns the kernels'
+    launches in (a)-(e)."""
+    import glob
+    import io
+    from desire_tpu_torch import bench_serve, ops
+    from desire_tpu_torch import evaluate as evaluate_cli
+    from desire_tpu_torch import predict as predict_cli
+    from desire_tpu_torch.data.loader import (SDDLoader,
+                                              _native_or_python_reader)
+    from desire_tpu_torch.data.windows import build_video_index
+    from desire_tpu_torch.eval.sampler import evaluate, make_rollout
+    from desire_tpu_torch.models.desire import desire_forward
+    from desire_tpu_torch.serve import Predictor, StreamServer
+    from desire_tpu_torch.train import checkpoint as ckpt_mod
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    from desire_tpu_torch.train.trainer import (batch_to_device,
+                                                make_train_step)
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    @contextlib.contextmanager
+    def counted():
+        """The kernels' launches of the block, added to the phase's."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def hold(calls, label):
+        res = check_recorded_calls(calls, verbose=False)
+        if sorted(res) != ["ioc_refine", "sgm_sample"]:
+            raise AssertionError(f"{label}: recorded {sorted(res)}")
+        print(f"  {label}: " + "; ".join(
+            f"{k} {n} calls, max_abs_err {e:.3e}"
+            for k, (n, e) in sorted(res.items()))
+            + " against the plain versions: ok", flush=True)
+
+    def run_cli(main, argv, stdin=""):
+        """An entry point's main(argv) in this process: (stdout lines,
+        stderr lines, wall s)."""
+        out, err = io.StringIO(), io.StringIO()
+        saved = sys.stdin
+        sys.stdin = io.StringIO(stdin)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                main(argv)
+        finally:
+            sys.stdin = saved
+        torch.cuda.synchronize()
+        return (out.getvalue().splitlines(), err.getvalue().splitlines(),
+                time.perf_counter() - t0)
+
+    best_dir = os.path.join(save_dir, "best")
+    cfg_b = ckpt_mod.overlay_geometry(cfg, ckpt_mod.load_config(best_dir))
+    params = ckpt_mod.restore_params(best_dir, cfg_b, dev)
+    horizons = (1, 2, 3, 4)
+
+    # -- 9a. evaluate -------------------------------------------------------
+    argv = ["--device", dev.type, "--save_dir", save_dir, "--data_dir",
+            data_dir, "--best", "1", "--batch_size", str(cfg.batch_size),
+            "--num_samples", str(cfg.num_samples), "--compute_dtype",
+            cfg.compute_dtype, "--calibration", "1", "--calib_fit_batches", "2", "--horizons",
+            ",".join(map(str, horizons))]
+    dump = os.path.join(tmp, "dump.npz")
+    print("evaluate: python -m desire_tpu_torch.evaluate "
+          + " ".join(argv[2:]) + " --dump ...", flush=True)
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "desire_tpu_torch.evaluate", *argv, "--dump",
+         dump], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+        raise AssertionError(f"evaluate exited with {proc.returncode}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    header, dumped, result = lines[0], lines[1], lines[-1]
+    check_eval_result(result, horizons)
+    # --dump_batches 4 (the default)
+    n_win = min(header["windows"], 4 * cfg.batch_size)
+    z = np.load(dump)
+    a, k, to, tf = cfg.max_num_obj, cfg.num_samples, cfg.obs_len, cfg.pred_len
+    want = {"obs_xy": (n_win, a, to, 2), "obs_mask": (n_win, a, to),
+            "fut_xy": (n_win, a, tf, 2), "fut_mask": (n_win, a, tf),
+            "traj": (n_win, a, k, tf, 2), "scores": (n_win, a, k),
+            "best": (n_win, a, tf, 2), "live": (n_win, a),
+            "video": (n_win,), "scale": (n_win,)}
+    if dumped["windows"] != n_win or tuple(z.files) != DUMP_KEYS or any(
+            z[key].shape != shape for key, shape in want.items()) or any(
+            z[key].dtype != np.float32 for key in DUMP_KEYS
+            if key != "video") or not np.isfinite(z["traj"]).all():
+        raise AssertionError(f"the dump: {dumped}, "
+                             f"{[(f, z[f].shape, z[f].dtype) for f in z.files]}")
+    print(f"  exit 0 in {cli_s:.1f} s; {header}; minADE "
+          f"{result['minADE_px']:.3f} px, top-1 {result['top1ADE_px']:.3f}, "
+          f"coverage@50 {result['calibration']['coverage_50']:.3f} raw, "
+          f"{result['calibration']['coverage_50_cal']:.3f} at tau "
+          f"{result['calibration']['sigma_temp']}; dump {n_win} windows, "
+          f"traj {z['traj'].shape} float32", flush=True)
+    # the same run in this process: its kernel calls, held against plain
+    with counted(), recorded_serving_calls() as calls:
+        _, _, eval_s = run_cli(evaluate_cli.main, argv + [
+            "--dump", os.path.join(tmp, "dump_in.npz")])
+    n_fwd = len(calls) // 2
+    hold(calls, "evaluate")
+    del calls
+    # the held-out pass as the entry point makes it (horizons, calibration
+    # at the fitted temperature), timed alone
+    tau = result["calibration"]["sigma_temp"]
+    with counted():
+        t0 = time.perf_counter()
+        evaluate(params, cfg_b, eval_loader, horizons=horizons,
+                 calibration=True, rank_blend=max(cfg_b.rank_blend_fit, 0.0),
+                 sigma_temps=(1.0, tuple(tau) if isinstance(tau, list)
+                              else tau))
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3 / eval_loader.num_batches
+
+    # -- 9b. predict: file mode, stream mode -----------------------------------
+    csvs = sorted(glob.glob(os.path.join(data_dir, "*", "*",
+                                         "annotations_processed.csv")))
+    with counted(), recorded_serving_calls() as calls:
+        out, err, file_s = run_cli(predict_cli.main, [
+            "--device", dev.type, "--save_dir", save_dir, "--best", "1",
+            "--num_samples", str(cfg.num_samples), "--csv", *csvs])
+    recs = [json.loads(x) for x in out]
+    if len(csvs) != 4 or [r["video"] for r in recs] != csvs:
+        raise AssertionError(f"{len(recs)} file-mode forecasts for "
+                             f"{len(csvs)} CSVs")
+    for r in recs:
+        if set(r) != {"frame", "step", "agents", "video", "scale"}:
+            raise AssertionError(f"file-mode keys {sorted(r)}")
+        check_forecast_line(r, cfg_b)
+    file_stats = json.loads(err[-1])
+    hold(calls, f"predict file mode ({len(recs)} CSVs, "
+                f"{sum(len(r['agents']) for r in recs)} agents)")
+    del calls
+    # stream mode over (obs_len + 2) * subsample frames of one video from
+    # frame 1200, with the agents of each frame
+    frames, ids, xs, ys = _native_or_python_reader(True)(csvs[0])
+    v = build_video_index(csvs[0], frames, ids, np.stack([xs, ys], -1),
+                          subsample=cfg.subsample, normalize=cfg.normalize)
+    f0, n_frames = 1200, (cfg.obs_len + 2) * cfg.subsample
+    feed = []
+    for f in range(f0, f0 + n_frames):
+        sel = frames == f
+        feed.append((f, [[int(i), float(x), float(y)] for i, x, y in
+                         zip(ids[sel], xs[sel], ys[sel])]))
+    # the JAX server's schedule (tests/test_serve.py): a forecast at every
+    # frame on the subsample grid from step obs_len - 1 on, where an agent
+    # is present
+    due = [f for f, ag in feed if (f - f0) % cfg.subsample == 0
+           and (f - f0) // cfg.subsample >= cfg.obs_len - 1
+           and any(i != 0 for i, _, _ in ag)]
+    stdin = "\n".join(json.dumps({"frame": f, "agents": ag})
+                       for f, ag in feed) + "\n"
+    with counted(), recorded_serving_calls() as calls:
+        out, err, _ = run_cli(predict_cli.main, [
+            "--device", dev.type, "--save_dir", save_dir, "--best", "1",
+            "--num_samples", str(cfg.num_samples), "--stream", "--scale",
+            repr(v.scale)], stdin)
+    recs = [json.loads(x) for x in out]
+    fcs = recs[1:]
+    if not recs[0].get("ready") or [r["frame"] for r in fcs] != due \
+            or len(due) != 3:
+        raise AssertionError(f"stream mode: {recs[0]}, forecasts at "
+                             f"{[r.get('frame') for r in fcs]}, due {due}")
+    for r, f in zip(fcs, due):
+        present = {i for i, _, _ in feed[f - f0][1]}
+        if r["step"] != (f - f0) // cfg.subsample \
+                or not {ag["id"] for ag in r["agents"]} <= present:
+            raise AssertionError(f"stream forecast at frame {f}")
+        check_forecast_line(r, cfg_b)
+    stream_stats = json.loads(err[-1])
+    hold(calls, f"predict stream mode ({n_frames} frames, {len(fcs)} "
+                f"forecasts, warm-up included)")
+    del calls
+    # the stream server's time a frame, over the same feed
+    pred = Predictor.from_checkpoint(save_dir, best=True, device=dev.type,
+                                     k_samples=cfg.num_samples,
+                                     max_windows=8).warmup()
+    server = StreamServer(pred, scale=v.scale)
+    with counted():
+        t0 = time.perf_counter()
+        for f, ag in feed:
+            server.observe(f, ag)
+        torch.cuda.synchronize()
+        stream_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    del pred, server
+
+    # -- 9c. rollout ------------------------------------------------------------
+    batch = next(iter(eval_loader.epoch_batches(0)))
+    xy, mask, ids_t = batch_to_device(batch, dev)
+    obs_xy = xy[:, :to].transpose(1, 2).contiguous()
+    obs_mask = mask[:, :to].transpose(1, 2).contiguous()
+    roll = make_rollout(cfg_b)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with counted(), recorded_serving_calls() as calls:
+        traj = roll(params, obs_xy, obs_mask, ids_t, num_chunks=2,
+                    generator=gen)
+    if tuple(traj.shape) != (batch.batch_size, a, to + 2 * tf, 2) \
+            or not bool(torch.isfinite(traj).all()) \
+            or not torch.equal(traj[:, :, :to], obs_xy):
+        raise AssertionError(f"rollout: {tuple(traj.shape)}")
+    hold(calls, f"rollout, 2 chunks at B={batch.batch_size}")
+    del calls
+    with counted():
+        t0 = time.perf_counter()
+        roll(params, obs_xy, obs_mask, ids_t, num_chunks=2, generator=gen)
+        torch.cuda.synchronize()
+        roll_ms = (time.perf_counter() - t0) * 1e3 / 2
+
+    # -- 9d. bench_serve ----------------------------------------------------------
+    with counted():
+        out, _, _ = run_cli(bench_serve.main, [
+            "--device", dev.type, "--save_dir", save_dir, "--num_samples",
+            str(cfg.num_samples), "--max_windows", "64", "--iters", "20"])
+    bench = json.loads(out[-1])
+    if bench["calls"] != 20 or bench["metric"] != "serve_latency":
+        raise AssertionError(f"bench_serve: {bench}")
+    print(json.dumps(bench), flush=True)
+
+    # -- 9e. the imagery raster ---------------------------------------------------
+    cfg_i = cfg.replace(scene_image_channels=1, save_dir="")
+    p_i = make_params(cfg_i, dev, seed=1)
+    loader_i = SDDLoader(cfg_i, split="train")
+    batch = next(iter(loader_i.epoch_batches(0)))
+    xy, mask, ids_t, img = batch_to_device(batch, dev)
+    g = cfg.scene_grid
+    if tuple(img.shape) != (cfg.batch_size, g, g, 1) or float(img.max()) <= 0:
+        raise AssertionError("the loader's occupancy rasters")
+    eps = torch.as_tensor(rng.standard_normal(
+        (cfg.batch_size * a, k, cfg.latent_size)).astype(np.float32),
+        device=dev)
+    with counted(), recorded_serving_calls() as calls:
+        out_k = desire_forward(p_i, cfg_i, xy, mask, ids_t, eps=eps,
+                               scene_image=img)
+    hold(calls, "imagery forward, bf16, flagship")
+    del calls
+    zero = desire_forward(p_i, cfg_i, xy, mask, ids_t, eps=eps)
+    if torch.equal(out_k["scores"], zero["scores"]):
+        raise AssertionError("the raster did not reach the model")
+    del out_k, zero
+    cfg_i32 = cfg_i.replace(compute_dtype="float32")
+    outs = {}
+    for name, ctx in (("kernels", contextlib.nullcontext),
+                      ("plain", plain_ops)):
+        with ctx():
+            outs[name] = desire_forward(p_i, cfg_i32, xy, mask, ids_t,
+                                        eps=eps, scene_image=img)
+    for key, tol in (("sgm_traj", F32_TOL), ("refined_traj", F32_TOL),
+                     ("scores", F32_SCORE_TOL)):
+        check_close(f"imagery forward float32 {key}", outs["kernels"][key],
+                    outs["plain"][key], **tol)
+    del outs
+    # one float32 training step at the flagship width on the loader's
+    # batch: the training kernels against the plain versions, on the card
+    noise = train_noise(cfg_i32, rng, dev)
+    after = {}
+    for name, ctx in (("kernels", counted), ("plain", plain_train_ops)):
+        step_fn = make_train_step(cfg_i32, loader_i.num_batches)
+        st = create_train_state(cfg_i32, p_i, seed=0)
+        with ctx():
+            st, met = step_fn(st, xy, mask, ids_t, img, noise=noise)
+        after[name] = (tree_leaves(st.params), met)
+    lr = cfg.learning_rate
+    diffs = [(x - y).abs() for x, y in zip(after["kernels"][0],
+                                           after["plain"][0])]
+    worst = max(float(d.max()) for d in diffs)
+    share = sum(int((d > 1e-4).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    ok = worst <= STEP_MAX_ABS(lr) and share <= STEP_FLIP_SHARE
+    print(f"  imagery step float32: loss kernels "
+          f"{float(after['kernels'][1]['loss']):.6f} plain "
+          f"{float(after['plain'][1]['loss']):.6f}; params after the step: "
+          f"max_abs_err={worst:.3e} (<= {STEP_MAX_ABS(lr):.3e}), share off "
+          f"by > 1e-4: {share:.2e} (<= {STEP_FLIP_SHARE}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check_close("imagery step loss", after["kernels"][1]["loss"],
+                after["plain"][1]["loss"], rtol=1e-4, atol=1e-5)
+    if not ok:
+        raise AssertionError("the imagery step through the kernels "
+                             "disagrees with the plain step")
+    del after, diffs
+
+    check_launches("phase 9", launches, ("sgm_sample", "ioc_refine",
+                                         "ioc_refine_train",
+                                         "ioc_refine_bwd", "nll_fwd",
+                                         "nll_bwd"), 1)
+    print(f"evaluation and forecasting on {smi} (host clock): evaluate "
+          f"entry point {cli_s:.1f} s in its own process, {eval_s:.1f} s in "
+          f"this one (restore, loaders, {n_fwd} forward batches: fit, dump, "
+          f"eval); its held-out pass {eval_ms:.3f} ms a batch "
+          f"({eval_loader.num_batches} batches, horizons, calibration at "
+          f"the fitted temperature); predict file "
+          f"mode {file_s:.1f} s, p50 {file_stats['latency_ms_p50']:.3f} ms "
+          f"p95 {file_stats['latency_ms_p95']:.3f} ms; stream p50 "
+          f"{stream_stats['latency_ms_p50']:.3f} ms p95 "
+          f"{stream_stats['latency_ms_p95']:.3f} ms a forecast, "
+          f"{stream_ms:.3f} ms a frame over {n_frames} frames; rollout "
+          f"{roll_ms:.3f} ms a chunk (B={eval_loader.cfg.batch_size}); "
+          f"bench_serve (64 windows) p50 {bench['latency_ms_p50']:.3f} ms "
+          f"p95 {bench['latency_ms_p95']:.3f} ms, "
+          f"{bench['agent_forecasts_per_sec']} agent forecasts/s",
+          flush=True)
+    print(f"  phase 9 launches {launches}", flush=True)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def check_forward_card_vs_cpu(scfg, sp, rng):
@@ -1830,10 +2249,14 @@ def main():
     # -- 7. the layer-by-layer IOC path -----------------------------------------
     kernels += unfused_phase(dev, smi, rng, params)
 
-    # -- 8. the training entry point --------------------------------------------
-    entry_point_phase(dev, smi, rng)
+    # -- 8. the training entry point, 9. evaluation and forecasting ------------
+    forecast_launches = entry_point_phase(dev, smi, rng)
+    for row in kernels:
+        # the social_freeze variant is not on phase 9's path
+        if row["name"] in forecast_launches:
+            row["launches"] += forecast_launches[row["name"]]
 
-    # -- 9. results -------------------------------------------------------------
+    # -- 10. results ------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

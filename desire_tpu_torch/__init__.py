@@ -19,7 +19,13 @@ Ported so far:
 * the training entry point: ``python -m desire_tpu_torch.train``
   (``train/run.py``) over the SDD loader (``data/``), with checkpoints
   (``train/checkpoint.py``), held-out evaluation (``eval/sampler.py``) and
-  ``serve.Predictor.from_checkpoint``.
+  ``serve.Predictor.from_checkpoint``;
+* evaluation and forecasting: ``python -m desire_tpu_torch.evaluate``,
+  ``python -m desire_tpu_torch.predict`` (file mode; stream mode through
+  ``serve.StreamServer``) and ``python -m desire_tpu_torch.bench_serve``,
+  with ``eval/sampler.py``'s ``make_sampler``, ``make_rollout``,
+  ``dump_trajectories`` and ``fit_sigma_temperature``; a model's scene
+  imagery raster (``scene_image_channels > 0``) reaches every forward.
 """
 
 from desire_tpu_torch.config import DesireConfig

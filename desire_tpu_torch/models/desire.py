@@ -78,7 +78,7 @@ def uses_fused_train_ioc(cfg: DesireConfig) -> bool:
 def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                    generator=None, k_samples=None, train=False,
                    kernel_weights=None, keep_x=None, keep_y=None,
-                   z_temp=None):
+                   z_temp=None, scene_image=None):
     """End-to-end forward. Returns a dict of the stage outputs.
 
     eps: optional latent noise (B*A, K, lat); keep_x / keep_y: optional
@@ -88,18 +88,21 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
     params (inference); without them each kernel call packs its own.
     z_temp: optional (B, A) per-agent latent temperature of the inference
     draws (``sgm.sgm_forward``).
-    A model with cfg.scene_image_channels > 0 sees a zero imagery raster.
+    scene_image: optional (B, G, G, cfg.scene_image_channels) imagery
+    raster of the scene CNN; zeros when the config declares imagery
+    channels and the caller gives none.
     Inference runs without autograd; train=True records the graph for
     :func:`desire_loss`."""
     with torch.inference_mode(not train):
         return _forward(params, cfg, xy, mask, ids, eps=eps,
                         generator=generator, k_samples=k_samples,
                         train=train, kernel_weights=kernel_weights,
-                        keep_x=keep_x, keep_y=keep_y, z_temp=z_temp)
+                        keep_x=keep_x, keep_y=keep_y, z_temp=z_temp,
+                        scene_image=scene_image)
 
 
 def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
-             train, kernel_weights, keep_x, keep_y, z_temp):
+             train, kernel_weights, keep_x, keep_y, z_temp, scene_image):
     if cfg.mesh_data * cfg.mesh_k > 1:
         raise NotImplementedError("meshed execution is not ported")
     K = k_samples or cfg.num_samples
@@ -145,9 +148,11 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
     if cfg.use_scf:
         image = None
         if cfg.scene_image_channels:
-            image = torch.zeros(
-                (b, cfg.scene_grid, cfg.scene_grid, cfg.scene_image_channels),
-                device=xy.device)
+            image = scene_image
+            if image is None:
+                image = torch.zeros((b, cfg.scene_grid, cfg.scene_grid,
+                                     cfg.scene_image_channels),
+                                    device=xy.device)
         feat_map = scf_mod.scene_feature_map(
             params["scf"], obs_xy.transpose(1, 2), obs_mask.transpose(1, 2),
             cfg.scene_grid, compute_dtype=cd, image=image)
@@ -181,12 +186,14 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
 
 
 def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
-                k_samples=None, noise=None, generator=None):
+                k_samples=None, noise=None, generator=None,
+                scene_image=None):
     """Multi-task training loss and metrics (JAX ``desire_loss``).
 
     noise: optional dict of the step's random draws: "eps" (B*A, K, lat),
     "lane_u" (B, A, K) uniforms of the variety subset, "keep_x" and
     "keep_y" dropout keep-masks; each missing one is drawn from generator.
+    scene_image: the batch's imagery raster (``desire_forward``).
     Returns (total, metrics), metrics with the JAX package's keys."""
     K = k_samples or cfg.num_samples
     b, _, a, _ = xy.shape
@@ -200,7 +207,8 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
                          f"{tuple(lane_u.shape)}")
     out = desire_forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
                          generator=generator, k_samples=K, train=True,
-                         keep_x=nz.get("keep_x"), keep_y=nz.get("keep_y"))
+                         keep_x=nz.get("keep_x"), keep_y=nz.get("keep_y"),
+                         scene_image=scene_image)
     fut_xy, fut_mask, live = out["fut_xy"], out["fut_mask"], out["live"]
     f32 = torch.float32
     # an agent must have at least one valid future step

@@ -5,7 +5,8 @@
 * KL divergence of the CVAE posterior from N(0, I) or from the conditional
   prior, with an optional per-dimension floor (free bits);
 * the live-agent masked mean;
-* the IOC ranking cross-entropy and the refinement regression.
+* the IOC ranking cross-entropy and the refinement regression;
+* draws from the bivariate Gaussians (stochastic sampling).
 
 Every stop-gradient of the JAX package is a ``.detach()`` here. Reductions
 that pick one lane (``min``) share the gradient between tied lanes, as
@@ -144,3 +145,22 @@ def refine_regression_loss(refined_xy, gt_xy, agent_mask, step_mask=None,
     else:
         err = err.mean(dim=-1)
     return masked_mean(err, agent_mask)
+
+
+def sample_bivariate(raw, draws=None, generator=None):
+    """Draw (x, y) from the bivariate Gaussians of raw (..., 5) by the
+    Cholesky factor of [[sx^2, rho sx sy], [rho sx sy, sy^2]]: x = mux +
+    sx e1, y = muy + sy (rho e1 + sqrt(1 - rho^2) e2). draws: the two
+    standard-normal draws (e1, e2), each of raw's leading shape; else drawn
+    from generator. Returns (..., 2)."""
+    mux, muy, sx, sy, rho = get_coef(raw)
+    if draws is None:
+        e1, e2 = (torch.randn(mux.shape, generator=generator,
+                              device=mux.device, dtype=mux.dtype)
+                  for _ in range(2))
+    else:
+        e1, e2 = (torch.as_tensor(e, device=mux.device).to(mux.dtype)
+                  for e in draws)
+    x = mux + sx * e1
+    y = muy + sy * (rho * e1 + torch.sqrt(1.0 - rho * rho) * e2)
+    return torch.stack([x, y], dim=-1)

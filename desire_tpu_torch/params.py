@@ -14,7 +14,8 @@ import torch
 
 from desire_tpu_torch.models.desire import init_desire
 
-__all__ = ["from_jax", "to_numpy", "to_device", "init_desire"]
+__all__ = ["from_jax", "to_numpy", "to_device", "init_desire",
+           "require_device"]
 
 
 def _map(tree, fn):
@@ -37,6 +38,16 @@ def from_jax(tree, device="cpu", dtype=None):
             t = torch.from_numpy(np.array(arr, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)
     return _map(tree, leaf)
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" raises without a CUDA device
+    (the entry points never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA device "
+                           "(pass --device cpu to run on the CPU)")
+    return device
 
 
 def to_device(tree, device):

@@ -11,11 +11,14 @@ whole horizon for every agent live at the last observed step: refinement and
 scores cover all ``pred_len`` steps.
 
 A Predictor takes an explicit ``(params, cfg, device)``, or restores a
-training checkpoint (``Predictor.from_checkpoint``).
+training checkpoint (``Predictor.from_checkpoint``). A
+:class:`StreamServer` keeps rolling per-agent histories of a frame feed and
+forecasts each frame through one.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
@@ -26,9 +29,8 @@ import torch
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.eval import metrics as M
 from desire_tpu_torch.models import desire
-from desire_tpu_torch.params import init_desire, to_device
+from desire_tpu_torch.params import require_device, to_device
 from desire_tpu_torch.train import checkpoint as ckpt_mod
-from desire_tpu_torch.train.state import create_train_state
 
 
 class Predictor:
@@ -43,15 +45,16 @@ class Predictor:
     device: where the forward runs. "cuda" needs a CUDA device and raises
         without one; it never falls back to the CPU.
     seed: seeds the generator of the latent noise.
-    Models with cfg.scene_image_channels > 0 are served with a zero
-    imagery raster.
+    scene_image: the (G, G, Ci) scene raster of a model with
+        cfg.scene_image_channels > 0 (a server handles one camera, so the
+        raster is a constant, broadcast to every window); zeros when not
+        given. ``predict_windows`` can override it per call.
     """
 
     def __init__(self, params, cfg: DesireConfig, *, device="cuda",
-                 k_samples=None, max_windows: int = 8, seed: int = 0):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Predictor(device='cuda') needs a CUDA device")
+                 k_samples=None, max_windows: int = 8, seed: int = 0,
+                 scene_image=None):
+        self.device = require_device(device)
         self.cfg = cfg
         self.params = to_device(params, self.device)
         self.kernel_weights = desire.pack_kernel_weights(self.params, cfg,
@@ -65,17 +68,29 @@ class Predictor:
         self._gen.manual_seed(seed)
         self._calls = 0
         self._latencies_ms: list[float] = []
+        self._default_img = (None if scene_image is None
+                             else self._raster(scene_image))
+
+    def _raster(self, scene_image):
+        """A (G, G, Ci) raster as float32 numpy, its shape checked against
+        the model's (Ci = cfg.scene_image_channels)."""
+        g, ci = self.cfg.scene_grid, self.cfg.scene_image_channels
+        img = np.asarray(scene_image, np.float32)
+        if img.shape != (g, g, ci):
+            raise ValueError(f"scene_image must be {(g, g, ci)}, got "
+                             f"{img.shape}")
+        return img
 
     @classmethod
     def from_checkpoint(cls, save_dir: str, *, best: bool = False,
                         device="cuda", cfg: DesireConfig | None = None,
                         k_samples=None, max_windows: int = 8,
-                        seed: int = 0) -> "Predictor":
+                        seed: int = 0, scene_image=None) -> "Predictor":
         """Restore the params of a training run's latest checkpoint in
         ``save_dir`` (``<save_dir>/best`` with best=True). The model's
         geometry comes from the saved config (``best/config.json`` first,
         which carries the fitted rank blend), laid over ``cfg`` (default
-        ``DesireConfig()``)."""
+        ``DesireConfig()``). scene_image: as the constructor's."""
         saved = None
         if best:
             saved = ckpt_mod.load_config(os.path.join(save_dir, "best"))
@@ -84,23 +99,18 @@ class Predictor:
         if saved is None:
             raise FileNotFoundError(f"no config.json in {save_dir}")
         cfg = ckpt_mod.overlay_geometry(cfg or DesireConfig(), saved)
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Predictor(device='cuda') needs a CUDA device")
-        template = create_train_state(cfg, to_device(init_desire(
-            cfg, torch.Generator().manual_seed(cfg.seed), "cpu"), dev))
+        dev = require_device(device)
         ckpt_dir = os.path.join(save_dir, "best") if best else save_dir
-        got = ckpt_mod.CheckpointManager(ckpt_dir).restore(template)
-        if got is None:
-            raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
-        return cls(got[0].params, cfg, device=dev, k_samples=k_samples,
-                   max_windows=max_windows, seed=seed)
+        params = ckpt_mod.restore_params(ckpt_dir, cfg, dev)
+        return cls(params, cfg, device=dev, k_samples=k_samples,
+                   max_windows=max_windows, seed=seed,
+                   scene_image=scene_image)
 
-    def _forward(self, xy, mask, ids, eps):
+    def _forward(self, xy, mask, ids, eps, img):
         out = desire.desire_forward(
             self.params, self.cfg, xy, mask, ids, eps=eps,
             generator=self._gen, k_samples=self.k,
-            kernel_weights=self.kernel_weights)
+            kernel_weights=self.kernel_weights, scene_image=img)
         traj = out["refined_traj"]
         scores = out["scores"]
         if scores is None:
@@ -142,12 +152,14 @@ class Predictor:
 
     # -- public API ----------------------------------------------------------
 
-    def predict_windows(self, windows, scales=None, eps=None):
+    def predict_windows(self, windows, scales=None, eps=None,
+                        scene_image=None):
         """Forecast a list of windows (each: obs_xy (A, To, 2) in raw
         pixels, obs_mask (A, To), ids (A,)). scales: per-window
         pixels-per-unit (scalar or list; default 1.0). eps: optional latent
         noise (max_windows * max_num_obj, K, lat) for one batch of windows;
-        else drawn from the Predictor's generator.
+        else drawn from the Predictor's generator. scene_image: an optional
+        (G, G, Ci) raster in place of the constructor's, for this call.
 
         Returns one dict per window: ids (A,), live (A,) bool, traj
         (A, K, Tf, 2) raw pixels, scores (A, K), best (A, Tf, 2) raw pixels.
@@ -162,7 +174,8 @@ class Predictor:
                       if isinstance(scales, (list, tuple, np.ndarray))
                       else scales)
                 out.extend(self.predict_windows(
-                    windows[i:i + self.max_windows], sc))
+                    windows[i:i + self.max_windows], sc,
+                    scene_image=scene_image))
             return out
         scales = np.broadcast_to(
             np.asarray(scales if scales is not None else 1.0, np.float32),
@@ -170,16 +183,22 @@ class Predictor:
         normed = [(np.asarray(oxy, np.float32) / scales[i], om, wids)
                   for i, (oxy, om, wids) in enumerate(windows)]
         xy, mask, ids = self._assemble(normed)
+        img = (self._default_img if scene_image is None
+               else self._raster(scene_image))
         t0 = time.perf_counter()
         dev = self.device
+        if img is not None:
+            # one raster for every window of the batch
+            img = torch.as_tensor(img, device=dev).expand(
+                (self.max_windows,) + img.shape)
         traj, scores, best = self._forward(
             torch.as_tensor(xy, device=dev), torch.as_tensor(mask, device=dev),
             torch.as_tensor(ids, device=dev),
-            None if eps is None else torch.as_tensor(eps, device=dev))
+            None if eps is None else torch.as_tensor(eps, device=dev), img)
         # the layer-by-layer IOC scores in the compute dtype; numpy has no
         # bfloat16
-        traj, scores, best = (traj.cpu().numpy(), scores.float().cpu().numpy(),
-                              best.cpu().numpy())
+        traj, scores, best = (x.float().cpu().numpy()
+                              for x in (traj, scores, best))
         self._latencies_ms.append((time.perf_counter() - t0) * 1e3)
         self._calls += 1
         out = []
@@ -195,10 +214,11 @@ class Predictor:
             })
         return out
 
-    def predict(self, obs_xy, obs_mask, ids, scale=1.0, eps=None):
+    def predict(self, obs_xy, obs_mask, ids, scale=1.0, eps=None,
+                scene_image=None):
         """Single-window convenience wrapper of predict_windows."""
         return self.predict_windows([(obs_xy, obs_mask, ids)], [scale],
-                                    eps)[0]
+                                    eps, scene_image)[0]
 
     def warmup(self):
         """One dummy window before serving traffic (builds and loads the
@@ -222,6 +242,79 @@ class Predictor:
                 "latency_ms_p95": float(np.percentile(lat, 95)),
                 "latency_ms_mean": float(lat.mean()),
                 "windows_per_sec": 1e3 * self._calls / float(lat.sum())}
+
+
+class StreamServer:
+    """Rolling-buffer frame feed -> forecasts, for live serving.
+
+    Frames come in as (frame number, [(id, x, y), ...]) in raw pixels;
+    ``scale`` is the scene's pixels a unit that the checkpoint was trained
+    with. Frames off the ``subsample`` grid (cfg.subsample, anchored at
+    the first frame seen) update nothing: the timeline of the training
+    windows. Once ``obs_len`` sampled steps have accumulated, every frame
+    on the grid yields one forecast (``Predictor.predict``'s dict plus
+    frame and step).
+    """
+
+    def __init__(self, predictor: Predictor, scale: float):
+        self.p = predictor
+        self.scale = float(scale)
+        cfg = predictor.cfg
+        self.subsample = cfg.subsample if cfg.protocol == "paper" else 1
+        self.obs_len = predictor.obs_len
+        self.f0: int | None = None
+        # each agent's history of (step, x, y), newest last
+        self.hist: dict[int, collections.deque] = {}
+        self.step = -1
+
+    def observe(self, frame: int, agents):
+        """Feed one frame. Returns a forecast dict when one is due, else
+        None. agents: iterable of (id, x, y)."""
+        if self.f0 is None:
+            self.f0 = int(frame)
+        if (int(frame) - self.f0) % self.subsample:
+            return None
+        step = (int(frame) - self.f0) // self.subsample
+        self.step = step
+        for aid, x, y in agents:
+            aid = int(aid)
+            if aid == 0:          # id 0 marks an empty slot
+                continue
+            self.hist.setdefault(
+                aid, collections.deque(maxlen=self.obs_len)).append(
+                (step, float(x), float(y)))
+        # drop the agents not seen for a whole window
+        gone = [aid for aid, h in self.hist.items()
+                if step - h[-1][0] >= self.obs_len]
+        for aid in gone:
+            del self.hist[aid]
+        if step + 1 < self.obs_len:
+            return None
+        return self._forecast(step)
+
+    def _forecast(self, step: int):
+        to = self.obs_len
+        a_max = self.p.cfg.max_num_obj
+        # the agents present now, in slots sorted by id (the loader's
+        # materialize_window order), at most max_num_obj of them
+        now = sorted(aid for aid, h in self.hist.items()
+                     if h[-1][0] == step)[:a_max]
+        if not now:
+            return None
+        na = len(now)
+        oxy = np.zeros((na, to, 2), np.float32)
+        om = np.zeros((na, to), np.float32)
+        for i, aid in enumerate(now):
+            for s, x, y in self.hist[aid]:
+                t = s - (step - to + 1)
+                if 0 <= t < to:
+                    oxy[i, t] = (x, y)
+                    om[i, t] = 1.0
+        ids = np.asarray(now, np.int64)
+        out = self.p.predict(oxy, om, ids, scale=self.scale)
+        out["frame"] = self.f0 + step * self.subsample
+        out["step"] = step
+        return out
 
 
 def forecast_to_json(out, top_k: int = 5) -> str:

@@ -25,8 +25,9 @@ import torch
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.data.loader import LoaderState
-from desire_tpu_torch.params import to_device
-from desire_tpu_torch.train.state import TrainState, tree_leaves
+from desire_tpu_torch.params import init_desire, to_device
+from desire_tpu_torch.train.state import (TrainState, create_train_state,
+                                          tree_leaves)
 
 _STATE = "state.pt"
 _METRICS = "metrics.json"
@@ -158,6 +159,17 @@ class CheckpointManager:
 
     def wait(self):
         """Saves are synchronous; kept for the JAX package's interface."""
+
+
+def restore_params(directory: str, cfg: DesireConfig, device):
+    """The params of the latest checkpoint in ``directory`` on ``device``,
+    for a model of ``cfg``'s geometry; FileNotFoundError without one."""
+    template = create_train_state(cfg, to_device(init_desire(
+        cfg, torch.Generator().manual_seed(cfg.seed), "cpu"), device))
+    got = CheckpointManager(directory).restore(template)
+    if got is None:
+        raise FileNotFoundError(f"no checkpoint found in {directory}")
+    return got[0].params
 
 
 def load_config(directory: str) -> DesireConfig | None:

@@ -31,7 +31,7 @@ from desire_tpu_torch.config import (DesireConfig, add_config_flags,
 from desire_tpu_torch.data.loader import LoaderState, SDDLoader
 from desire_tpu_torch.eval.sampler import evaluate, fit_rank_blend
 from desire_tpu_torch.models.desire import init_desire
-from desire_tpu_torch.params import to_device
+from desire_tpu_torch.params import require_device, to_device
 from desire_tpu_torch.train import checkpoint as ckpt_mod
 from desire_tpu_torch.train import trainer
 from desire_tpu_torch.train.state import create_train_state
@@ -73,14 +73,6 @@ def main(argv=None):
     return 0
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("training on device 'cuda' needs a CUDA device "
-                           "(pass --device cpu to train on the CPU)")
-    return device
-
-
 def _fresh_state(cfg: DesireConfig, device):
     """Step 0: params drawn on the CPU from cfg.seed (the same on every
     device), moved to ``device``; the training generator seeded cfg.seed
@@ -97,7 +89,7 @@ def train(cfg: DesireConfig, resume: bool = False, eval_every: int = 1,
     state. log_every: batches between logged steps (the finiteness check
     and the mid-epoch checkpoints, every cfg.save_every windows, ride on
     it)."""
-    device = _device(device)
+    device = require_device(device)
     if cfg.mesh_data * cfg.mesh_k > 1:
         raise NotImplementedError("meshed training is not ported")
     log = MetricLogger(os.path.join(cfg.save_dir, "metrics.jsonl")

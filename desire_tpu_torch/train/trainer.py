@@ -24,14 +24,17 @@ from desire_tpu_torch.train.state import (TrainState, apply_updates,
 
 
 def make_train_step(cfg: DesireConfig, steps_per_epoch: int) -> Callable:
-    """step_fn(state, xy, mask, ids, noise=None) -> (new state, metrics).
+    """step_fn(state, xy, mask, ids, img=None, noise=None) -> (new state,
+    metrics).
 
-    noise: optional pinned draws of the step, the keys of
-    ``desire.desire_loss`` plus "zoom" (B,), the log zoom factors in
-    [-speed_aug, speed_aug) of the speed augmentation; missing ones come from state.generator. metrics are
-    the loss's, plus "grad_norm" of the gradients before clipping."""
+    img: the batch's (B, G, G, Ci) scene raster (cfg.scene_image_channels
+    > 0; zeros when not given). noise: optional pinned draws of the step,
+    the keys of ``desire.desire_loss`` plus "zoom" (B,), the log zoom
+    factors in [-speed_aug, speed_aug) of the speed augmentation; missing
+    ones come from state.generator. metrics are the loss's, plus
+    "grad_norm" of the gradients before clipping."""
 
-    def step_fn(state: TrainState, xy, mask, ids, noise=None):
+    def step_fn(state: TrainState, xy, mask, ids, img=None, noise=None):
         gen = state.generator
         xy = xy.float()
         if cfg.speed_aug > 0:
@@ -50,7 +53,7 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int) -> Callable:
         params = tree_unflatten(state.params, leaves)
         total, metrics = desire.desire_loss(params, cfg, xy, mask, ids,
                                             step=state.step, noise=noise,
-                                            generator=gen)
+                                            generator=gen, scene_image=img)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
@@ -70,15 +73,17 @@ class NonFiniteLossError(RuntimeError):
 
 
 def make_eval_forward(cfg: DesireConfig, k_samples=None) -> Callable:
-    """fwd(params, xy, mask, ids, eps=None, generator=None, z_temp=None) ->
-    ``desire_forward(train=False)``'s outputs: the latent noise from eps
-    (B*A, K, lat) when given, else from generator; z_temp the optional
-    (B, A) latent temperature."""
-    def fwd(params, xy, mask, ids, eps=None, generator=None, z_temp=None):
+    """fwd(params, xy, mask, ids, img=None, eps=None, generator=None,
+    z_temp=None) -> ``desire_forward(train=False)``'s outputs: img the
+    batch's scene raster, the latent noise from eps (B*A, K, lat) when
+    given, else from generator; z_temp the optional (B, A) latent
+    temperature."""
+    def fwd(params, xy, mask, ids, img=None, eps=None, generator=None,
+            z_temp=None):
         return desire.desire_forward(params, cfg, xy, mask, ids, eps=eps,
                                      generator=generator,
                                      k_samples=k_samples, train=False,
-                                     z_temp=z_temp)
+                                     z_temp=z_temp, scene_image=img)
     return fwd
 
 
@@ -102,17 +107,22 @@ def stage_to_device(arrays, device) -> tuple:
 
 
 def batch_to_device(batch, device) -> tuple:
-    """A host batch -> (xy, mask, ids) float32 tensors on ``device``, in one
-    copy (``stage_to_device``). A batch's scene raster stays on the host:
-    the port's model takes no imagery yet."""
-    return stage_to_device([batch.xy, batch.mask, batch.ids], device)
+    """A host batch -> (xy, mask, ids, *img) float32 tensors on ``device``,
+    in one copy (``stage_to_device``): img is the batch's (B, G, G, Ci)
+    scene raster where it carries one (cfg.scene_image_channels > 0), for
+    callers to splat into the step or forward."""
+    arrs = [batch.xy, batch.mask, batch.ids]
+    if getattr(batch, "image", None) is not None:
+        arrs.append(batch.image)
+    return stage_to_device(arrs, device)
 
 
 def run_epoch(state: TrainState, loader, epoch: int, step_fn,
               log_fn=None, log_every: int = 20, start_batch: int = 0,
               max_batches: int | None = None, max_bad_steps: int = 3):
     """Drive one epoch over ``loader.epoch_batches(epoch, start_batch)``
-    (batches with xy, mask and ids arrays), at most max_batches of them.
+    (batches with xy, mask and ids arrays, and a scene raster ``image``
+    where the config has imagery), at most max_batches of them.
     The batches go to the params' device (``batch_to_device``). Returns
     (state, mean loss)."""
     device = tree_leaves(state.params)[0].device
@@ -125,8 +135,8 @@ def run_epoch(state: TrainState, loader, epoch: int, step_fn,
         # batch trained
         batches = itertools.islice(batches, max_batches)
     for bi, batch in enumerate(batches, start=start_batch):
-        xy, mask, ids = batch_to_device(batch, device)
-        state, metrics = step_fn(state, xy, mask, ids)
+        xy, mask, ids, *img = batch_to_device(batch, device)
+        state, metrics = step_fn(state, xy, mask, ids, *img)
         if bi % log_every == 0:
             # the finiteness check rides the logging cadence: reading a
             # value waits for the device

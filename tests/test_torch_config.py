@@ -92,9 +92,10 @@ def test_flags_match():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter: desire_tpu_torch, all its submodules (the
-    data loader, the eval harness, the checkpoint and the training entry
-    point by name), chip_smoke, chip_time_training and chip_time_serving,
-    and then neither jax nor desire_tpu is loaded."""
+    data loader, the eval harness, the checkpoint, the training, evaluation
+    and forecasting entry points and the serving bench by name),
+    chip_smoke, chip_time_training and chip_time_serving, and then neither
+    jax nor desire_tpu is loaded."""
     code = """
 import importlib, pkgutil, sys
 import desire_tpu_torch
@@ -102,6 +103,9 @@ import desire_tpu_torch.data.loader
 import desire_tpu_torch.eval.sampler
 import desire_tpu_torch.train.checkpoint
 import desire_tpu_torch.train.run
+import desire_tpu_torch.evaluate
+import desire_tpu_torch.predict
+import desire_tpu_torch.bench_serve
 for m in pkgutil.walk_packages(desire_tpu_torch.__path__, "desire_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke

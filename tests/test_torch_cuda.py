@@ -630,3 +630,67 @@ def test_checkpoint_roundtrip_of_a_cuda_generator(cuda_device, tmp_path):
     assert (got.step, got.count, lst.epoch, lst.batch_index) == (3, 3, 1, 2)
     with pytest.raises(ValueError):
         mgr.restore(create_train_state(cfg, _params(cfg, "cpu")))
+
+
+@pytest.mark.cuda
+def test_sampler_and_rollout_through_serving_kernels(cuda_device):
+    """make_sampler (stochastic) and a two-chunk make_rollout on the card
+    (the sampler and IOC kernels) against the same on the CPU (their plain
+    versions), float32, the same latent noise and draws."""
+    from desire_tpu_torch.eval.sampler import make_rollout, make_sampler
+    cfg = _cfg()
+    p = _params(cfg, "cpu")
+    rng = np.random.default_rng(3)
+    b, a, to, k = 2, cfg.max_num_obj, cfg.obs_len, cfg.num_samples
+    xy = np.cumsum(rng.normal(0, 0.02, (b, cfg.total_len, a, 2)), 1) + 0.5
+    mask = np.ones((b, cfg.total_len, a))
+    ids = np.tile(np.arange(1, a + 1), (b, 1))
+    eps = rng.standard_normal((2, b * a, k, cfg.latent_size))
+    draws = rng.standard_normal((2, b, a, k, cfg.pred_len))
+    res, roll = {}, {}
+    for dev in ("cpu", cuda_device):
+        f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        pd = to_device(p, dev)
+        res[str(dev)] = make_sampler(cfg, stochastic=True)(
+            pd, f(xy), f(mask), f(ids), eps=f(eps[0]),
+            draws=(f(draws[0]), f(draws[1])))
+        roll[str(dev)] = make_rollout(cfg)(
+            pd, f(xy[:, :to]).transpose(1, 2), f(mask[:, :to]).transpose(
+                1, 2), f(ids), num_chunks=2, eps=[f(e) for e in eps])
+    card, cpu = res[str(cuda_device)], res["cpu"]
+    for name in ("traj", "best", "sgm_traj"):
+        np.testing.assert_allclose(card[name].cpu().numpy(),
+                                   cpu[name].numpy(), err_msg=name, **TOL)
+    np.testing.assert_allclose(card["scores"].cpu().numpy(),
+                               cpu["scores"].numpy(), **SCORE_TOL)
+    np.testing.assert_allclose(roll[str(cuda_device)].cpu().numpy(),
+                               roll["cpu"].numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_predictor_with_a_raster_on_the_card(cuda_device):
+    """A Predictor of an imagery model (scene_image_channels=1) on the card
+    against the same on the CPU, with its raster and a per-call one."""
+    from desire_tpu_torch.serve import Predictor
+    cfg = _cfg(scene_image_channels=1)
+    p = _params(cfg, "cpu")
+    rng = np.random.default_rng(4)
+    g = cfg.scene_grid
+    imgs = rng.uniform(0, 1, (2, g, g, 1)).astype(np.float32)
+    eps = rng.standard_normal((2 * cfg.max_num_obj, cfg.num_samples,
+                               cfg.latent_size)).astype(np.float32)
+    oxy = rng.uniform(20, 60, (3, cfg.obs_len, 2)).astype(np.float32)
+    win = (oxy, np.ones((3, cfg.obs_len), np.float32), np.arange(1, 4))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pred = Predictor(p, cfg, device=dev, max_windows=2,
+                         scene_image=imgs[0])
+        out[str(dev)] = [pred.predict(*win, scale=100.0, eps=eps,
+                                      scene_image=si)
+                         for si in (None, imgs[1])]
+    for got, ref in zip(out[str(cuda_device)], out["cpu"]):
+        np.testing.assert_allclose(got["traj"], ref["traj"], rtol=2e-4,
+                                   atol=2e-3)
+        np.testing.assert_allclose(got["scores"], ref["scores"],
+                                   **SCORE_TOL)
+    assert not np.allclose(out["cpu"][0]["scores"], out["cpu"][1]["scores"])

@@ -267,8 +267,9 @@ def test_train_step_unfused_ioc_matches_jax(jax_params):
     _check_train_step(_cfg(fused_train=False), jax_params)
 
 
-def _check_train_step(cfg, jax_params):
-    xy, mask, ids = _batch(cfg, seed=5)
+def _check_train_step(cfg, jax_params, batch=None):
+    """batch: (xy, mask, ids, *img) numpy arrays, default _batch's."""
+    xy, mask, ids, *img = batch if batch is not None else _batch(cfg, seed=5)
     # the JAX step donates its state: it gets a copy of the shared params
     j_state = jstate.create_train_state(
         cfg, jax.tree_util.tree_map(jnp.array, jax_params),
@@ -277,10 +278,10 @@ def _check_train_step(cfg, jax_params):
     noise = {k: _torch(v) for k, v in
              _loss_noise(cfg, sub, xy.shape[0], xy.shape[2]).items()}
     j_new, j_metrics = jtrainer.make_train_step(cfg, 10)(
-        j_state, *map(jnp.asarray, (xy, mask, ids)))
+        j_state, *map(jnp.asarray, (xy, mask, ids, *img)))
     t_state = tstate.create_train_state(cfg, from_jax(jax_params))
     t_new, t_metrics = ttrainer.make_train_step(cfg, 10)(
-        t_state, *map(_torch, (xy, mask, ids)), noise=noise)
+        t_state, *map(_torch, (xy, mask, ids, *img)), noise=noise)
     assert t_new.step == int(j_new.step) == 1
     for k in j_metrics:
         np.testing.assert_allclose(float(t_metrics[k]), float(j_metrics[k]),
