@@ -67,8 +67,18 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    training step; every serving kernel call of these paths, recorded, is
    held against its plain version on the inputs it was given, and the
    float32 forward and step against the plain ones; then times them;
-10. prints one JSON line of per-kernel results (launches of phases 4, 6,
-   7 and 9), then, last, the device line.
+10. the ``(data, k)`` mesh on the one card: 4 ranks on cuda:0 joined by
+   gloo (``parallel/mesh.py``), each loading the library phase 2 built,
+   run the bf16 serving forward under (2, 1), (1, 2) and (2, 2) meshes,
+   each rank's kernel calls held against their plain versions and the
+   gathered outputs against the unsharded forward on the same inputs and
+   eps; 3 data-parallel ``run_epoch`` steps at B = 64 on a (2, 1) mesh
+   against the unsharded steps from the same state (losses and gradient
+   norms, the ranks' params bitwise equal, rank 0 alone checkpointing),
+   one float32 (2, 1) step against the plain unsharded step on the CPU;
+   then a one-rank NCCL group all-reduces on the card;
+11. prints one JSON line of per-kernel results (launches of phases 4, 6,
+   7, 9 and 10), then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -561,17 +571,21 @@ def synthetic_batch(cfg, rng):
 
 class SyntheticLoader:
     """``epoch_batches`` over a fixed number of synthetic batches, the
-    interface ``train.trainer.run_epoch`` reads."""
+    interface ``train.trainer.run_epoch`` reads (``rows``: a rank's rows of
+    each batch, as ``data.loader.SDDLoader``'s)."""
+    drop_remainder = True
 
     def __init__(self, cfg, rng, batches):
-        from types import SimpleNamespace
         self.cfg = cfg
-        self.batches = [SimpleNamespace(**dict(zip(("xy", "mask", "ids"),
-                                                   synthetic_batch(cfg, rng))))
+        self.batches = [dict(zip(("xy", "mask", "ids"),
+                                 synthetic_batch(cfg, rng)))
                         for _ in range(batches)]
 
-    def epoch_batches(self, epoch, start_batch=0):
-        yield from self.batches[start_batch:]
+    def epoch_batches(self, epoch, start_batch=0, rows=None):
+        from types import SimpleNamespace
+        for b in self.batches[start_batch:]:
+            yield SimpleNamespace(**{k: v if rows is None else v[rows]
+                                     for k, v in b.items()})
 
 
 def train_noise(cfg, rng, device):
@@ -631,28 +645,35 @@ def check_step_card_vs_cpu(scfg, sp, rng):
                           noise={k: T(v) for k, v in noise.items()})
         after[where] = (tree_leaves(st.params), met)
     launches = dict(ops.LAUNCHES)
-    lr = scfg.learning_rate
+    check_step_rule(after["cuda"], after["cpu"], scfg.learning_rate,
+                    f"card launches {launches}")
+    return launches
+
+
+def check_step_rule(card, cpu, lr, note=""):
+    """Hold a float32 step's (params leaves, metrics) on the card against
+    the plain step's on the CPU: STEP_MAX_ABS and STEP_FLIP_SHARE on the
+    params, the loss within 1e-4."""
     worst, moved, total_n = 0.0, 0, 0
-    for a_, b_ in zip(*(after[w][0] for w in ("cuda", "cpu"))):
+    for a_, b_ in zip(card[0], cpu[0]):
         diff = (a_.cpu() - b_).abs()
         worst = max(worst, float(diff.max()))
         moved += int((diff > 1e-4).sum())
         total_n += diff.numel()
     share = moved / total_n
     for key in ("loss", "grad_norm"):
-        print(f"  {key}: card {float(after['cuda'][1][key]):.6f} "
-              f"CPU {float(after['cpu'][1][key]):.6f}", flush=True)
+        print(f"  {key}: card {float(card[1][key]):.6f} "
+              f"CPU {float(cpu[1][key]):.6f}", flush=True)
     ok = worst <= STEP_MAX_ABS(lr) and share <= STEP_FLIP_SHARE
     print(f"  params after the step: max_abs_err={worst:.3e} (<= "
           f"{STEP_MAX_ABS(lr):.3e}), share off by > 1e-4: {share:.2e} "
-          f"(<= {STEP_FLIP_SHARE}) {'ok' if ok else 'FAIL'}; card launches "
-          f"{launches}", flush=True)
-    check_close("step loss", after["cuda"][1]["loss"].cpu(),
-                after["cpu"][1]["loss"], rtol=1e-4, atol=1e-5)
+          f"(<= {STEP_FLIP_SHARE}) {'ok' if ok else 'FAIL'}; {note}",
+          flush=True)
+    check_close("step loss", card[1]["loss"].cpu(), cpu[1]["loss"],
+                rtol=1e-4, atol=1e-5)
     if not ok:
         raise AssertionError("the float32 step on the card disagrees with "
                              "the plain step on the CPU")
-    return launches
 
 
 def epoch_run(cfg, params, loader, label):
@@ -1311,9 +1332,11 @@ def entry_cfg(data_dir, save_dir):
 @contextlib.contextmanager
 def recorded_serving_calls():
     """Record every call of the model's serving kernel call sites (sampler,
-    IOC refine), which go through as usual; yields the list of (kernel
+    IOC refine; under a mesh, the launches of the sharded wrappers on the
+    rank's block), which go through as usual; yields the list of (kernel
     name, args, kwargs, outputs)."""
     from desire_tpu_torch import ops
+    from desire_tpu_torch.ops import ioc_fused, sgm_fused
     calls = []
     saved = ops.sgm_sample_decode, ops.ioc_refine
 
@@ -1323,12 +1346,14 @@ def recorded_serving_calls():
             calls.append((name, a, kw, out))
             return out
         return call
-    ops.sgm_sample_decode = recorder("sgm_sample", saved[0])
-    ops.ioc_refine = recorder("ioc_refine", saved[1])
+    ops.sgm_sample_decode = sgm_fused.sgm_sample_decode = recorder(
+        "sgm_sample", saved[0])
+    ops.ioc_refine = ioc_fused.ioc_refine = recorder("ioc_refine", saved[1])
     try:
         yield calls
     finally:
-        ops.sgm_sample_decode, ops.ioc_refine = saved
+        ops.sgm_sample_decode = sgm_fused.sgm_sample_decode = saved[0]
+        ops.ioc_refine = ioc_fused.ioc_refine = saved[1]
 
 
 def check_recorded_calls(calls, verbose=True):
@@ -2020,6 +2045,295 @@ def forecast_phase(dev, smi, rng, cfg, data_dir, save_dir, eval_loader,
     return launches
 
 
+# -- 10. the mesh on one card ----------------------------------------------------
+# Phase 10 puts MESH_RANKS processes on cuda:0, joined by gloo (NCCL refuses
+# two ranks on one card); they load the kernel library phase 2 built.
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+MESH_RANKS = 4
+MESH_STEPS = 3
+# seconds a rank waits in a collective, and the ranks' wall limit in all
+MESH_TIMEOUT_S = 120.0
+MESH_WALL_S = 300.0
+# data-parallel bf16 steps against the unsharded ones: each rank's loss
+# terms over 32 of the 64 windows, the gradients summed over the two; bf16
+# products in another grouping move a loss by ~1e-3 relative, and the
+# params' differences grow over the steps
+DP_REL_TOL = 1e-2
+
+
+def warm_step_ms(logged):
+    """The median ms of run_epoch's steps after the first, from the logged
+    cumulative mean host seconds a batch (every step logged; logging waits
+    for the card)."""
+    ends = [m["sec_per_batch"] * (i + 1) for i, m in enumerate(logged)]
+    return statistics.median(b - a for a, b in zip(ends, ends[1:])) * 1e3
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_rank(rank, port, tmp):
+    """Phase 10, rank ``rank`` of MESH_RANKS on cuda:0 (gloo): (a) the bf16
+    serving forward on every mesh of MESH_SHAPES that holds the rank, each
+    kernel call held against its plain version, the outputs of mesh rank
+    (0, 0) written for the parent; (b) on the (2, 1) mesh, MESH_STEPS
+    run_epoch steps of the flagship training on the rank's 32 rows, the
+    ranks' params compared, a checkpoint saved (rank 0 alone writes), and
+    one float32 step at small_cfg held against the plain unsharded step on
+    the CPU (rank 0). Writes ``rank<r>.json``: launches of (a) and (b),
+    times, losses."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.data.loader import LoaderState
+    from desire_tpu_torch.models.desire import (desire_forward,
+                                                pack_kernel_weights)
+    from desire_tpu_torch.parallel import mesh as mesh_mod
+    from desire_tpu_torch.params import to_device
+    from desire_tpu_torch.train.checkpoint import CheckpointManager
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    from desire_tpu_torch.train.trainer import make_train_step, run_epoch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_mod.init_multihost(f"localhost:{port}", MESH_RANKS, rank, "cuda",
+                            MESH_TIMEOUT_S)
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    meshes = {shape: mesh_mod.make_mesh(*shape, device="cuda",
+                                        timeout_s=MESH_TIMEOUT_S)
+              for shape in MESH_SHAPES}
+    dev = torch.device("cuda", 0)
+    say = lambda msg: print(f"  rank {rank}: {msg}", flush=True)
+    report = {"rank": rank, "forward_ms": {},
+              "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+
+    def count(launches):
+        for name, n in launches.items():
+            report["launches"][name] += n
+
+    cfg = flagship_cfg()
+    params = to_device(inp["params"], dev)
+    packed = pack_kernel_weights(params, cfg, dev)
+    batch = [inp[k].to(dev) for k in ("xy", "mask", "ids")]
+    eps = inp["eps"].to(dev)
+    for shape, m in meshes.items():
+        if m is None:
+            continue
+
+        def fwd():
+            return desire_forward(params, cfg, *batch, eps=eps,
+                                  kernel_weights=packed, mesh=m)
+        name = f"{shape[0]}x{shape[1]}"
+        ops.reset_launch_counts()
+        with recorded_serving_calls() as calls:
+            out = fwd()
+        torch.cuda.synchronize()
+        count(ops.LAUNCHES)
+        checked = check_recorded_calls(calls, verbose=False)
+        del calls
+        if m.coords == (0, 0):
+            torch.save({k: out[k].cpu() for k in ("raw5", "refined_traj",
+                                                  "scores")},
+                       os.path.join(tmp, f"fwd_{name}.pt"))
+        times = []
+        for _ in range(6):
+            mesh_mod.barrier(m)
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        report["forward_ms"][name] = statistics.median(times[1:])
+        say(f"mesh {name} at {m.coords}: forward of its block (B/"
+            f"{shape[0]}, K/{shape[1]}) {report['forward_ms'][name]:.3f} ms "
+            f"(host clock, median of 5, the gather included); kernel calls "
+            f"held against plain {checked}")
+
+    m = meshes[(2, 1)]
+    if m is not None:
+        loader = SyntheticLoader(cfg, None, 0)
+        loader.batches = inp["batches"]
+        state = create_train_state(cfg, to_device(inp["params"], dev),
+                                   seed=0)
+        step_fn = make_train_step(cfg, steps_per_epoch=190, mesh=m)
+        logged = []
+        ops.reset_launch_counts()
+        state, _ = run_epoch(state, loader, 0, step_fn, log_every=1,
+                             log_fn=lambda mm, st: logged.append(mm),
+                             mesh=m)
+        count(ops.LAUNCHES)
+        report["step_ms"] = warm_step_ms(logged)
+        report["losses"] = [mm["loss"] for mm in logged]
+        report["grad_norms"] = [mm["grad_norm"] for mm in logged]
+        flat = torch.cat([x.reshape(-1) for x in tree_leaves(state.params)])
+        report["params_equal"] = bool(torch.equal(
+            mesh_mod.broadcast(m, flat.clone()), flat))
+        report["checkpoint_written"] = CheckpointManager(
+            os.path.join(tmp, f"ckpt_rank{rank}")).save(
+            state, LoaderState(), cfg)
+        say(f"{MESH_STEPS} data-parallel steps on rows {m.rows(64)}: "
+            f"{report['step_ms']:.3f} ms a step after the first (host "
+            f"clock, the loader included), losses {report['losses']}, "
+            f"params equal to rank 0's: {report['params_equal']}")
+        # one float32 step at small_cfg on the card, against the plain
+        # unsharded step on the CPU
+        scfg = small_cfg()
+
+        def small_step(where, mesh, part):
+            T = lambda x: torch.as_tensor(x, device=where)
+            st = create_train_state(scfg, to_device(inp["sparams"], where),
+                                    seed=0)
+            st, met = make_train_step(scfg, 190, mesh=mesh)(
+                st, *(T(x)[part] for x in inp["sbatch"]),
+                noise={k: T(v) for k, v in inp["snoise"].items()})
+            return tree_leaves(st.params), met
+        card = small_step(dev, m, m.rows(scfg.batch_size))
+        if rank == 0:
+            check_step_rule(card, small_step("cpu", None, slice(None)),
+                            scfg.learning_rate,
+                            "float32 (2, 1) step on the card vs the plain "
+                            "unsharded step on the CPU")
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    mesh_mod.barrier(meshes[(2, 2)])
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(dev, smi, rng):
+    """Phase 10: the (data, k) mesh on one card. MESH_RANKS processes
+    (``chip_smoke.py --mesh-rank``, gloo on cuda:0) run ``mesh_rank``; this
+    process computes the unsharded references on the same inputs (the bf16
+    serving forward of phases 4-5, MESH_STEPS steps of phase 6's training
+    from the same state), compares, and shows that a one-rank NCCL group
+    initialises and all-reduces. Returns the ranks' launches (the meshed
+    forwards and training steps)."""
+    import tempfile
+    import torch.distributed as dist
+    from desire_tpu_torch.models.desire import (desire_forward,
+                                                pack_kernel_weights)
+    from desire_tpu_torch.parallel import mesh as mesh_mod
+    from desire_tpu_torch.params import to_device
+
+    print(f"phase 10: the mesh on one card, {MESH_RANKS} gloo ranks on "
+          f"cuda:0 ({smi})", flush=True)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="desire_mesh_")
+    cfg = flagship_cfg()
+    params = make_params(cfg, "cpu", seed=10)
+    batch = flagship_windows(cfg, rng, "cpu")
+    eps = torch.randn((cfg.batch_size * cfg.max_num_obj, cfg.num_samples,
+                       cfg.latent_size),
+                      generator=torch.Generator().manual_seed(10))
+    loader = SyntheticLoader(cfg, rng, MESH_STEPS)
+    scfg = small_cfg()
+    torch.save(dict(params=params, xy=batch[0], mask=batch[1], ids=batch[2],
+                    eps=eps, batches=loader.batches,
+                    sparams=make_params(scfg, "cpu", seed=11),
+                    sbatch=synthetic_batch(scfg, rng),
+                    snoise=train_noise(scfg, rng, "cpu")),
+               os.path.join(tmp, "inputs.pt"))
+    p_dev = to_device(params, dev)
+    ref = desire_forward(p_dev, cfg, *(x.to(dev) for x in batch),
+                         eps=eps.to(dev),
+                         kernel_weights=pack_kernel_weights(p_dev, cfg, dev))
+    ref = {k: ref[k].cpu() for k in ("raw5", "refined_traj", "scores")}
+    logged, _, _ = epoch_run(cfg, p_dev, loader, "unsharded reference")
+    del p_dev
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--mesh-rank",
+         str(r), str(port), tmp], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(MESH_RANKS)]
+    logs = [""] * MESH_RANKS
+    deadline = time.perf_counter() + MESH_WALL_S
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))[0]
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for r, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                logs[r] += p.communicate()[0]
+    for lg in logs:
+        print(lg, end="", flush=True)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"phase 10: ranks {failed} failed or ran out "
+                             f"of {MESH_WALL_S} s")
+    reports = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+               for r in range(MESH_RANKS)]
+
+    # (a) the meshed forwards against the unsharded one
+    for shape in MESH_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        got = torch.load(os.path.join(tmp, f"fwd_{name}.pt"))
+        same = {k: bool(torch.equal(got[k], ref[k])) for k in got}
+        print(f"  mesh {name} forward vs unsharded: bitwise equal {same}",
+              flush=True)
+        check_bf16("refined", got["raw5"][..., :2], ref["raw5"][..., :2])
+        check_bf16("refined", got["refined_traj"], ref["refined_traj"])
+        check_bf16("scores", got["scores"], ref["scores"])
+        ms = [rp["forward_ms"][name] for rp in reports
+              if name in rp["forward_ms"]]
+        print(f"  mesh {name}: per-rank forward ms {ms} ({smi}; ranks "
+              f"share one card: no speed-up is measured)", flush=True)
+
+    # (b) data-parallel training against the unsharded steps
+    dp = reports[:2]
+    for key, ref_key in (("losses", "loss"), ("grad_norms", "grad_norm")):
+        want = [m[ref_key] for m in logged]
+        for rp in dp:
+            rel = [abs(a - b) / abs(b) for a, b in zip(rp[key], want)]
+            print(f"  rank {rp['rank']} {key} {rp[key]} vs unsharded {want}: "
+                  f"max rel {max(rel):.2e} (<= {DP_REL_TOL})", flush=True)
+            if len(rel) != MESH_STEPS or max(rel) > DP_REL_TOL:
+                raise AssertionError(f"phase 10: data-parallel {key} "
+                                     f"disagree with the unsharded steps")
+    if not all(rp["params_equal"] for rp in dp):
+        raise AssertionError("phase 10: the ranks' params differ")
+    written = [rp["checkpoint_written"] for rp in dp]
+    on_disk = [bool(os.listdir(os.path.join(tmp, f"ckpt_rank{r}")))
+               for r in range(2)]
+    print(f"  checkpoint: save() wrote {written}, on disk {on_disk}; step ms "
+          f"after the first, per rank {[round(rp['step_ms'], 3) for rp in dp]}"
+          f", unsharded {warm_step_ms(logged):.3f} ({smi}; the two ranks "
+          f"share the card)", flush=True)
+    if written != [True, False] or on_disk != [True, False]:
+        raise AssertionError("phase 10: rank 0 alone must write checkpoints")
+
+    # (c) the backend of ranks with a card each: a one-rank NCCL group
+    mesh_mod.init_multihost(f"localhost:{free_port()}", 1, 0, "cuda", 60.0)
+    try:
+        x = torch.full((4,), 3.0, device=dev)
+        dist.all_reduce(x)
+        backend = dist.get_backend()
+        ok = backend == "nccl" and bool((x == 3.0).all())
+    finally:
+        dist.destroy_process_group()
+    print(f"  one-rank {backend} group: all_reduce on the card "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("phase 10: the NCCL group failed")
+
+    launches = {}
+    for rp in reports:
+        for k, n in rp["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    check_launches("phase 10", launches, ("sgm_sample", "ioc_refine",
+                                          "ioc_refine_train",
+                                          "ioc_refine_bwd", "nll_fwd",
+                                          "nll_bwd"), 1)
+    print(f"  phase 10 launches {launches}", flush=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return launches
+
+
 def check_forward_card_vs_cpu(scfg, sp, rng):
     """desire_forward(train=False) through the kernels on the card against
     the plain versions on the CPU (float32, the same params, inputs and
@@ -2251,12 +2565,15 @@ def main():
 
     # -- 8. the training entry point, 9. evaluation and forecasting ------------
     forecast_launches = entry_point_phase(dev, smi, rng)
-    for row in kernels:
-        # the social_freeze variant is not on phase 9's path
-        if row["name"] in forecast_launches:
-            row["launches"] += forecast_launches[row["name"]]
 
-    # -- 10. results ------------------------------------------------------------
+    # -- 10. the mesh on one card -------------------------------------------------
+    mesh_launches = mesh_phase(dev, smi, rng)
+    for row in kernels:
+        # the social_freeze variant is not on phase 9's or 10's path
+        for extra in (forecast_launches, mesh_launches):
+            row["launches"] += extra.get(row["name"], 0)
+
+    # -- 11. results ------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2271,5 +2588,11 @@ if __name__ == "__main__":
             sys.exit(2)
         sys.path.insert(0, ROOT)
         resume_check(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-rank"]:      # phase 10's ranks
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.path.insert(0, ROOT)
+        mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

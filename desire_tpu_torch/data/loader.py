@@ -171,14 +171,20 @@ class SDDLoader:
         return Batch(xy=xy, mask=mask, ids=ids, video=video, scale=scale,
                      image=image)
 
-    def epoch_batches(self, epoch: int, start_batch: int = 0
-                      ) -> Iterator[Batch]:
+    def epoch_batches(self, epoch: int, start_batch: int = 0,
+                      rows: np.ndarray | None = None) -> Iterator[Batch]:
         """Yield the batches of one epoch, resumable at any batch index
-        (``state`` is the position after the batch last yielded)."""
+        (``state`` is the position after the batch last yielded).
+
+        rows: optional indices within each global batch to assemble, the
+        data-parallel hook: every rank walks the same seeded permutation
+        and assembles only its rows (``parallel.mesh.local_batch_rows``)."""
         perm = self._perm(epoch)
         bs = self.cfg.batch_size
         for bi in range(start_batch, self.num_batches):
             idx = perm[bi * bs:(bi + 1) * bs]
+            if rows is not None:
+                idx = idx[rows[rows < len(idx)]]
             self.state = LoaderState(epoch=epoch, batch_index=bi + 1)
             yield self._assemble(self._pairs[idx])
 

@@ -13,6 +13,8 @@ else they are drawn from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from desire_tpu_torch.config import DesireConfig
@@ -21,6 +23,7 @@ from desire_tpu_torch.models import ioc as ioc_mod
 from desire_tpu_torch.models import losses
 from desire_tpu_torch.models import scf as scf_mod
 from desire_tpu_torch.models import sgm as sgm_mod
+from desire_tpu_torch.parallel import mesh as mesh_mod
 
 
 def init_desire(cfg: DesireConfig, generator: torch.Generator, device,
@@ -78,7 +81,7 @@ def uses_fused_train_ioc(cfg: DesireConfig) -> bool:
 def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                    generator=None, k_samples=None, train=False,
                    kernel_weights=None, keep_x=None, keep_y=None,
-                   z_temp=None, scene_image=None):
+                   z_temp=None, scene_image=None, mesh=None):
     """End-to-end forward. Returns a dict of the stage outputs.
 
     eps: optional latent noise (B*A, K, lat); keep_x / keep_y: optional
@@ -92,7 +95,23 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
     raster of the scene CNN; zeros when the config declares imagery
     channels and the caller gives none.
     Inference runs without autograd; train=True records the graph for
-    :func:`desire_loss`."""
+    :func:`desire_loss`.
+    mesh: a ``parallel.mesh.Mesh`` of more than one rank (inference):
+    collective, every rank of the mesh calls it with the same global
+    batch and eps (or a generator in the same state), computes its block
+    of rows and lanes (:func:`_meshed_forward`) and returns the global
+    outputs. Without one the forward is unsharded, whatever the config's
+    mesh_data and mesh_k."""
+    if mesh is not None and mesh.size > 1:
+        if train:
+            raise ValueError("the meshed forward is inference; desire_loss "
+                             "trains under a mesh")
+        with torch.inference_mode():
+            return _meshed_forward(params, cfg, mesh, xy, mask, ids,
+                                   eps=eps, generator=generator,
+                                   k_samples=k_samples,
+                                   kernel_weights=kernel_weights,
+                                   z_temp=z_temp, scene_image=scene_image)
     with torch.inference_mode(not train):
         return _forward(params, cfg, xy, mask, ids, eps=eps,
                         generator=generator, k_samples=k_samples,
@@ -101,10 +120,67 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                         scene_image=scene_image)
 
 
+# outputs of the meshed forward with lanes on dim 2, and with rows only
+_LANE_OUTPUTS = ("raw5", "refined_traj", "scores")
+_ROW_OUTPUTS = ("z_mu", "z_logvar", "zp_mu", "zp_logvar")
+
+
+def _meshed_forward(params, cfg, mesh, xy, mask, ids, *, eps, generator,
+                    k_samples, kernel_weights, z_temp, scene_image):
+    """The inference forward on rank (d, k) of a mesh: the latent noise is
+    the global draw (eps, else drawn from generator as the unsharded
+    forward draws it); the rank runs every stage on its rows (block d of
+    the B windows), the two kernels on its lanes (block k of the K), and
+    the outputs are gathered to their global shapes on every rank (two
+    all-reduces). Every stage is per row and per lane (the scene CNN's
+    group norm is per window, the social attention per lane), so the
+    blocks need no other collective. Where B or K does not split over the
+    mesh, every rank runs the unsharded forward (the JAX package falls
+    back to XLA there)."""
+    K = k_samples or cfg.num_samples
+    b, _, a, _ = xy.shape
+    kw = dict(generator=generator, k_samples=K, train=False,
+              kernel_weights=kernel_weights, keep_x=None, keep_y=None)
+    if not mesh.divides(b, K):
+        return _forward(params, cfg, xy, mask, ids, eps=eps, z_temp=z_temp,
+                        scene_image=scene_image, mesh=None, **kw)
+    if eps is None:
+        eps = torch.randn((b * a, K, cfg.latent_size), generator=generator,
+                          device=xy.device)
+    rows = mesh.rows(b)
+
+    def cut(x):
+        return None if x is None else x[rows]
+
+    out = _forward(params, cfg, xy[rows], mask[rows], ids[rows],
+                   eps=eps[mesh.rows(b * a)], z_temp=cut(z_temp),
+                   scene_image=cut(scene_image), mesh=mesh, **kw)
+
+    # (B/md, A, K/mk, ...) blocks of (B, A, K, ...), (B/md, ...) of (B, ...)
+    lane_keys = [k for k in _LANE_OUTPUTS if (cfg.use_ioc or k == "raw5")
+                 and out[k] is not None]
+    blocks = [out[k] for k in lane_keys] + out["per_iter_trajs"]
+    got = mesh_mod.assemble(
+        mesh, [(x, (b, a, K) + x.shape[3:]) for x in blocks], lane_dim=2)
+    result = dict(zip(lane_keys, got), per_iter_trajs=got[len(lane_keys):])
+    row_keys = [k for k in _ROW_OUTPUTS if out[k] is not None]
+    result.update(zip(row_keys, mesh_mod.assemble(
+        mesh, [(out[k], (b,) + out[k].shape[1:]) for k in row_keys])))
+    obs_xy, fut_xy, obs_mask, fut_mask = split_batch(cfg, xy.float(),
+                                                     mask.float())
+    result.update(sgm_traj=result["raw5"][..., 0:2],
+                  live=losses.agent_validity_mask(ids), obs_xy=obs_xy,
+                  fut_xy=fut_xy, obs_mask=obs_mask, fut_mask=fut_mask)
+    for k in _ROW_OUTPUTS + ("scores",):
+        result.setdefault(k, None)
+    if not cfg.use_ioc:
+        result["refined_traj"] = result["sgm_traj"]
+    return result
+
+
 def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
-             train, kernel_weights, keep_x, keep_y, z_temp, scene_image):
-    if cfg.mesh_data * cfg.mesh_k > 1:
-        raise NotImplementedError("meshed execution is not ported")
+             train, kernel_weights, keep_x, keep_y, z_temp, scene_image,
+             mesh=None):
     K = k_samples or cfg.num_samples
     xy = xy.float()
     mask = mask.float()
@@ -121,8 +197,9 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
         eps=eps, generator=generator, k_samples=K, train=train,
         keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"),
         z_temp=(None if z_temp is None
-                else z_temp.reshape(n, 1, 1).float()))
+                else z_temp.reshape(n, 1, 1).float()), mesh=mesh)
 
+    K = out["traj_mu"].shape[1]     # the rank's lanes under a mesh
     tf_len = fut_xy.shape[2]
     traj = out["traj_mu"].reshape(b, a, K, tf_len, 2)
     dec_h = out["dec_h"].reshape(b, a, K, tf_len, -1)
@@ -166,7 +243,9 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
               delta_scale=ioc_mod._DELTA_SCALE,
               social_freeze=cfg.social_freeze)
     if not train and uses_fused_ioc(cfg):
-        refined, scores = ops.ioc_refine(
+        refine = (ops.ioc_refine if mesh is None
+                  else functools.partial(ops.ioc_refine_sharded, mesh))
+        refined, scores = refine(
             params["ioc"], params["scf"], traj.contiguous(),
             dec_h.contiguous(), feat_map.contiguous(), live.contiguous(),
             fut_mask.contiguous(), weights=packed.get("ioc"), **kw)
@@ -187,18 +266,41 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
 
 def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
                 k_samples=None, noise=None, generator=None,
-                scene_image=None):
+                scene_image=None, mesh=None):
     """Multi-task training loss and metrics (JAX ``desire_loss``).
 
     noise: optional dict of the step's random draws: "eps" (B*A, K, lat),
     "lane_u" (B, A, K) uniforms of the variety subset, "keep_x" and
     "keep_y" dropout keep-masks; each missing one is drawn from generator.
     scene_image: the batch's imagery raster (``desire_forward``).
+    mesh: a data-parallel ``parallel.mesh.Mesh`` (mesh_k 1). The batch and
+    noise are then the rank's rows (every draw given, cut from the global
+    draws: ``train.trainer.step_noise``), and every masked mean divides
+    the rank's total by the mask's sum over the global batch, so that the
+    ranks' losses and metrics add up to the global ones; the speed
+    weights' statistics are global too.
     Returns (total, metrics), metrics with the JAX package's keys."""
     K = k_samples or cfg.num_samples
     b, _, a, _ = xy.shape
     dev = xy.device
     nz = noise or {}
+    if mesh is not None and mesh.shape[1] > 1:
+        raise NotImplementedError(
+            "lane-parallel training (mesh_k > 1) is not ported yet")
+    if mesh is not None and (
+            {"lane_u", "eps"} - set(nz)
+            or (cfg.keep_prob < 1.0 and {"keep_x", "keep_y"} - set(nz))):
+        raise ValueError("under a mesh the loss takes the rank's rows of "
+                         "the step's global draws: pass every one in noise")
+
+    def stat_mean(values, weights):
+        # a detached masked mean over the global batch
+        if mesh is None:
+            return losses.masked_mean(values, weights)
+        tot = mesh_mod.all_sum(mesh, torch.stack(
+            [(values * weights).sum(), weights.sum()]))
+        return tot[0] / torch.clamp(tot[1], min=1e-8)
+
     lane_u = nz.get("lane_u")
     if lane_u is None:
         lane_u = torch.rand((b, a, K), generator=generator, device=dev)
@@ -220,10 +322,13 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
             out["obs_xy"].reshape(-1, out["obs_xy"].shape[2], 2),
             out["obs_mask"].reshape(-1, out["obs_mask"].shape[2]))
         s = s.reshape(live.shape).detach()
-        mean_s = losses.masked_mean(s, live)
+        mean_s = stat_mean(s, live)
         w = ((s + 1e-4) / (mean_s + 1e-4)) ** cfg.speed_loss_alpha
-        w = w / torch.clamp(losses.masked_mean(w, live), min=1e-6)
+        w = w / torch.clamp(stat_mean(w, live), min=1e-6)
         live = live * w
+    # the masked means' denominator: the live agents' weight
+    count = (None if mesh is None
+             else mesh_mod.all_sum(mesh, live.sum().detach()))
 
     raw5 = out["raw5"].to(f32)
     tf_len = raw5.shape[3]
@@ -246,7 +351,7 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
                              else nll_per_lane + lane_pen, dim=-1)
     else:
         nll_agg = nll_per_lane.mean(dim=-1)
-    nll = losses.masked_mean(nll_agg, live)
+    nll = losses.masked_mean(nll_agg, live, count=count)
 
     if out["zp_mu"] is not None:
         kld_per = losses.kld_gaussians(
@@ -257,7 +362,7 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
         kld_per = losses.kld_normal(out["z_mu"].to(f32),
                                     out["z_logvar"].to(f32),
                                     free_bits=cfg.kld_free_bits)
-    kld = losses.masked_mean(kld_per, live)
+    kld = losses.masked_mean(kld_per, live, count=count)
     w_kld = cfg.w_kld
     if cfg.kld_warmup and step is not None:
         ramp = torch.as_tensor(step, dtype=f32) / cfg.kld_warmup
@@ -270,7 +375,7 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     if kp > 0 and cfg.w_prior_nll > 0:
         # best of the prior lanes: prior-predictive coverage
         nll_prior = losses.masked_mean(
-            torch.amin(nll_per_lane[..., :kp], dim=-1), live)
+            torch.amin(nll_per_lane[..., :kp], dim=-1), live, count=count)
         total = total + cfg.w_prior_nll * nll_prior
         metrics["prior_nll"] = nll_prior
 
@@ -279,19 +384,21 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
         live_t = live.to(f32)
         ce = losses.ioc_cross_entropy(
             scores, out["refined_traj"].to(f32), fut_xy.to(f32), live_t,
-            step_mask=fut_mask.to(f32), temperature=cfg.ioc_temp)
+            step_mask=fut_mask.to(f32), temperature=cfg.ioc_temp,
+            count=count)
         reg = 0.0
         for t in out["per_iter_trajs"]:
             reg = reg + losses.refine_regression_loss(
                 t.to(f32), fut_xy.to(f32), live_t,
                 step_mask=fut_mask.to(f32), agg=cfg.recon_agg,
-                lane_penalty=lane_pen)
+                lane_penalty=lane_pen, count=count)
         reg = reg / max(len(out["per_iter_trajs"]), 1)
         # trust region: every lane's refinement stays near its hypothesis
         delta2 = ((out["refined_traj"].to(f32)
                    - out["sgm_traj"].to(f32)) ** 2).sum(dim=-1)
         delta2 = delta2 * fut_mask[:, :, None].to(f32)
-        delta_mag = losses.masked_mean(delta2.mean(dim=(-1, -2)), live_t)
+        delta_mag = losses.masked_mean(delta2.mean(dim=(-1, -2)), live_t,
+                                       count=count)
         total = (total + cfg.w_ce * ce + cfg.w_reg * reg
                  + cfg.w_delta * delta_mag)
         metrics.update(ioc_ce=ce, refine_reg=reg, delta_mag=delta_mag)

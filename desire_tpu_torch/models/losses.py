@@ -83,10 +83,15 @@ def kld_gaussians(mean_q, log_var_q, mean_p, log_var_p, dim=-1,
     return per_dim.sum(dim=dim)
 
 
-def masked_mean(values, mask, eps=1e-8):
-    """sum(values * mask) / max(sum(mask), eps)."""
+def masked_mean(values, mask, eps=1e-8, count=None):
+    """sum(values * mask) / max(sum(mask), eps). count: the denominator's
+    sum in place of sum(mask): under a data-parallel mesh, the mask's sum
+    over the global batch, so that the ranks' terms add up to the global
+    mean."""
     mask = mask.to(values.dtype)
-    return (values * mask).sum() / torch.clamp(mask.sum(), min=eps)
+    if count is None:
+        count = mask.sum()
+    return (values * mask).sum() / torch.clamp(count, min=eps)
 
 
 def agent_validity_mask(src_ids, tgt_ids=None):
@@ -99,14 +104,15 @@ def agent_validity_mask(src_ids, tgt_ids=None):
 
 
 def ioc_cross_entropy(scores, hyp_xy, gt_xy, agent_mask, step_mask=None,
-                      temperature=1.0, standardize=True):
+                      temperature=1.0, standardize=True, count=None):
     """Max-ent IOC ranking loss over K hypotheses.
 
     scores (..., K); hyp_xy (..., K, T, 2); gt_xy (..., T, 2); agent_mask
     (...); step_mask (..., T). The target q_k is softmax(-dist_k / temp)
     over the lanes' mean displacement errors (z-scored across the lanes
     when standardize); it is a target, so the trajectories get no gradient
-    from it. Returns the masked mean over agents of CE(q, softmax(scores)).
+    from it. Returns the masked mean over agents of CE(q, softmax(scores))
+    (count: as :func:`masked_mean`'s).
     """
     hyp_xy = hyp_xy.detach()
     diff = hyp_xy - gt_xy[..., None, :, :]
@@ -123,15 +129,15 @@ def ioc_cross_entropy(scores, hyp_xy, gt_xy, agent_mask, step_mask=None,
     q = torch.softmax(-d / temperature, dim=-1)
     logp = torch.log_softmax(scores, dim=-1)
     ce = -(q * logp).sum(dim=-1)
-    return masked_mean(ce, agent_mask)
+    return masked_mean(ce, agent_mask, count=count)
 
 
 def refine_regression_loss(refined_xy, gt_xy, agent_mask, step_mask=None,
-                           agg="min", lane_penalty=None):
+                           agg="min", lane_penalty=None, count=None):
     """L2 regression of refined trajectories (..., K, T, 2) on gt (..., T,
     2), step-masked mean over T, then 'min' (closest lane, after the
     optional additive lane_penalty (..., K)) or 'mean' over the lanes, then
-    the masked mean over agents."""
+    the masked mean over agents (count: as :func:`masked_mean`'s)."""
     err = ((refined_xy - gt_xy[..., None, :, :]) ** 2).sum(dim=-1)
     if step_mask is not None:
         sm = step_mask[..., None, :]
@@ -144,7 +150,7 @@ def refine_regression_loss(refined_xy, gt_xy, agent_mask, step_mask=None,
         err = torch.amin(err, dim=-1)
     else:
         err = err.mean(dim=-1)
-    return masked_mean(err, agent_mask)
+    return masked_mean(err, agent_mask, count=count)
 
 
 def sample_bivariate(raw, draws=None, generator=None):

@@ -299,7 +299,7 @@ def _keep_mask(keep, shape, keep_prob, generator, device):
 def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
                 fut_mask=None, *, eps=None, generator=None, k_samples=None,
                 train=False, keep_x=None, keep_y=None, sampler_weights=None,
-                z_temp=None):
+                z_temp=None, mesh=None):
     """SGM pass over flattened agent rows.
 
     obs_xy (N, To, 2) absolute normalized, obs_mask (N, To); in training
@@ -317,7 +317,9 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
     z = mu_p + sigma_p * z_temp * eps), times the learned temperature where
     the model has one; ignored in training. sampler_weights: the fused
     sampler's kernel weights (``ops.pack_sampler``), packed per call when
-    not given.
+    not given. mesh: a ``parallel.mesh.Mesh``; the rows given are then the
+    rank's, eps holds every lane of them, the rank samples its block of
+    the lanes (``mesh.lanes(K)``) and the outputs hold those alone.
     Returns a dict of absolute-position Gaussians for K hypotheses."""
     K = k_samples or cfg.num_samples
     n = obs_xy.shape[0]
@@ -362,10 +364,13 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
         feats = torch.relu(L.dense(
             p["embed_x"], _traj_feats(enc_rel.to(cd), obs_mask.to(cd),
                                       extra=enc_extra)))
-        dec_h_f32, hx = ops.sgm_sample_decode(
-            p, feats.contiguous(), obs_mask.contiguous(),
-            rho_seed.float().contiguous(), eps.contiguous(), pred_len,
-            compute_dtype=cd, weights=sampler_weights)
+        args = (p, feats.contiguous(), obs_mask.contiguous(),
+                rho_seed.float().contiguous(), eps.contiguous(), pred_len)
+        kw = dict(compute_dtype=cd, weights=sampler_weights)
+        if mesh is None:
+            dec_h_f32, hx = ops.sgm_sample_decode(*args, **kw)
+        else:
+            dec_h_f32, hx = ops.sgm_sample_decode_sharded(mesh, *args, **kw)
         mu_p = logvar_p = None
         if "prior" in p:
             mu_p, lv_raw = L.dense(p["prior"], hx.to(cd)).chunk(2, dim=-1)
@@ -374,6 +379,10 @@ def sgm_forward(p, cfg: DesireConfig, obs_xy, obs_mask, fut_xy=None,
         raw = L.dense(p["head"], dec_h)
         lane_h = dec_h_f32
     else:
+        if mesh is not None:
+            # the rank's lanes (the JAX layout hint on z)
+            eps = eps[:, mesh.lanes(K)]
+            K = eps.shape[1]
         kp = cfg.keep_prob if train else 1.0
         emb = cfg.embedding_size
         dev = obs_xy.device

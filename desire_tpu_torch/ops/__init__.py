@@ -7,16 +7,21 @@ the caller keeps them), CPU tensors take the plain version. There is no
 fallback from one to the other: a kernel that does not build or launch
 raises. The training ops (``ioc_refine_train``, ``bivariate_nll_sum``) and
 the scene pooling of the layer-by-layer IOC (``bilinear_pool``) are
-``torch.autograd.Function``s whose backward is a kernel too.
+``torch.autograd.Function``s whose backward is a kernel too. Under a
+``(data, k)`` mesh the serving kernels launch per rank on its block
+(``sgm_sample_decode_sharded``, ``ioc_refine_sharded``).
 """
 
 from desire_tpu_torch.ops._build import LAUNCHES, reset_launch_counts
 from desire_tpu_torch.ops.ioc_bwd import ioc_refine_train
-from desire_tpu_torch.ops.ioc_fused import ioc_refine, pack_ioc
+from desire_tpu_torch.ops.ioc_fused import (ioc_refine, ioc_refine_sharded,
+                                            pack_ioc)
 from desire_tpu_torch.ops.nll import bivariate_nll_sum
 from desire_tpu_torch.ops.scene_pool import bilinear_pool
-from desire_tpu_torch.ops.sgm_fused import pack_sampler, sgm_sample_decode
+from desire_tpu_torch.ops.sgm_fused import (pack_sampler, sgm_sample_decode,
+                                            sgm_sample_decode_sharded)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "bilinear_pool",
-           "bivariate_nll_sum", "ioc_refine", "ioc_refine_train", "pack_ioc",
-           "pack_sampler", "sgm_sample_decode"]
+           "bivariate_nll_sum", "ioc_refine", "ioc_refine_sharded",
+           "ioc_refine_train", "pack_ioc", "pack_sampler", "sgm_sample_decode",
+           "sgm_sample_decode_sharded"]

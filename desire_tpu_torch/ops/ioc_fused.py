@@ -277,3 +277,27 @@ def ioc_refine(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
         return ioc_refine_plain(p_ioc, p_scf, traj, dec_h, feat_map, live,
                                 fut_mask, **kw)
     raise ValueError(f"no IOC kernel for device {traj.device}")
+
+
+def ioc_refine_sharded(mesh, p_ioc, p_scf, traj, dec_h, feat_map, live,
+                       fut_mask, *, num_refine, delta_scale,
+                       social_freeze=False, weights=None):
+    """Rank-and-refine on rank ``(d, k)`` of a ``(data, k)`` mesh
+    (``parallel/mesh.py``): its launch (:func:`ioc_refine`) on its
+    (B/md, A, K/mk) block.
+
+    traj and dec_h are the rank's block, as the sampler's shard gives it
+    (``sgm_sample_decode_sharded``); feat_map, live and fut_mask hold its
+    B/md rows. Every (row, lane) is independent (the social attention
+    pools a lane's own agents), so there are no collectives. The kernel
+    projects the social messages itself: the JAX wrapper's explicit
+    ``msg`` is the same product. Returns (refined, scores) of the block."""
+    b = traj.shape[0]
+    for name, x in (("feat_map", feat_map), ("live", live),
+                    ("fut_mask", fut_mask), ("dec_h", dec_h)):
+        if x.shape[0] != b:
+            raise ValueError(f"{name} holds {x.shape[0]} rows, traj {b}: "
+                             "pass the rank's rows of each")
+    return ioc_refine(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask,
+                      num_refine=num_refine, delta_scale=delta_scale,
+                      social_freeze=social_freeze, weights=weights)

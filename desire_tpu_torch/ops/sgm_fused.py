@@ -216,3 +216,23 @@ def sgm_sample_decode(p, feats, obs_mask, rho_seed, eps, pred_len, *,
         return sgm_sample_decode_plain(p, feats, obs_mask, rho_seed, eps,
                                        pred_len, compute_dtype=compute_dtype)
     raise ValueError(f"no sampler for device {feats.device}")
+
+
+def sgm_sample_decode_sharded(mesh, p, feats, obs_mask, rho_seed, eps,
+                              pred_len, *, compute_dtype=torch.float32,
+                              weights=None):
+    """The sampler on rank ``(d, k)`` of a ``(data, k)`` mesh
+    (``parallel/mesh.py``): its launch (:func:`sgm_sample_decode`) on its
+    block of the N agent rows and K lanes.
+
+    feats, obs_mask, rho_seed and eps hold the rank's rows, block d of the
+    global batch's (``mesh.rows(N)``, cut by the caller where the batch
+    enters, so that the encoders before the kernel run on them alone); eps
+    holds every lane, and the rank launches on its block k
+    (``mesh.lanes(K)``). Every (row, lane) is independent and each lane
+    block recomputes its rows' encoder (a d-wide GRU over To steps, small
+    beside the K-lane decode), so there are no collectives. Returns
+    (dec_h (N/md, K/mk, pred_len, d) f32, hx (N/md, d) f32)."""
+    lanes = eps[:, mesh.lanes(eps.shape[1])].contiguous()
+    return sgm_sample_decode(p, feats, obs_mask, rho_seed, lanes, pred_len,
+                             compute_dtype=compute_dtype, weights=weights)

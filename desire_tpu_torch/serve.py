@@ -29,6 +29,7 @@ import torch
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.eval import metrics as M
 from desire_tpu_torch.models import desire
+from desire_tpu_torch.parallel import mesh as mesh_mod
 from desire_tpu_torch.params import require_device, to_device
 from desire_tpu_torch.train import checkpoint as ckpt_mod
 
@@ -49,12 +50,23 @@ class Predictor:
         cfg.scene_image_channels > 0 (a server handles one camera, so the
         raster is a constant, broadcast to every window); zeros when not
         given. ``predict_windows`` can override it per call.
+    mesh: an optional ``(data, k)`` ``parallel.mesh.Mesh`` for scale-out
+        serving: windows split over ``data`` and hypothesis lanes over
+        ``k``; the Predictor then runs on the rank's device (``device`` is
+        ignored) and ``predict_windows`` is collective (its docstring).
+        max_windows must split over ``data``.
     """
 
     def __init__(self, params, cfg: DesireConfig, *, device="cuda",
                  k_samples=None, max_windows: int = 8, seed: int = 0,
-                 scene_image=None):
-        self.device = require_device(device)
+                 scene_image=None, mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and max_windows % self.mesh.shape[0]:
+            raise ValueError(
+                f"max_windows={max_windows} must divide over the data axis "
+                f"({self.mesh.shape[0]} devices)")
+        self.device = (self.mesh.device if self.mesh is not None
+                       else require_device(device))
         self.cfg = cfg
         self.params = to_device(params, self.device)
         self.kernel_weights = desire.pack_kernel_weights(self.params, cfg,
@@ -90,7 +102,9 @@ class Predictor:
         ``save_dir`` (``<save_dir>/best`` with best=True). The model's
         geometry comes from the saved config (``best/config.json`` first,
         which carries the fitted rank blend), laid over ``cfg`` (default
-        ``DesireConfig()``). scene_image: as the constructor's."""
+        ``DesireConfig()``). scene_image: as the constructor's. The
+        forward is unsharded, whatever the saved config's mesh_data and
+        mesh_k."""
         saved = None
         if best:
             saved = ckpt_mod.load_config(os.path.join(save_dir, "best"))
@@ -110,7 +124,8 @@ class Predictor:
         out = desire.desire_forward(
             self.params, self.cfg, xy, mask, ids, eps=eps,
             generator=self._gen, k_samples=self.k,
-            kernel_weights=self.kernel_weights, scene_image=img)
+            kernel_weights=self.kernel_weights, scene_image=img,
+            mesh=self.mesh)
         traj = out["refined_traj"]
         scores = out["scores"]
         if scores is None:
@@ -163,6 +178,12 @@ class Predictor:
 
         Returns one dict per window: ids (A,), live (A,) bool, traj
         (A, K, Tf, 2) raw pixels, scores (A, K), best (A, Tf, 2) raw pixels.
+
+        Under a mesh every rank of it calls this with windows of the same
+        count and shapes: rank 0's assembled batch, scales, eps and raster
+        are broadcast, the latent noise is the global draw of the
+        generator (the same on every rank), and every rank returns the
+        forecasts of rank 0's windows.
         """
         if len(windows) > self.max_windows:
             if eps is not None:
@@ -187,14 +208,23 @@ class Predictor:
                else self._raster(scene_image))
         t0 = time.perf_counter()
         dev = self.device
+        batch = [torch.as_tensor(x, device=dev) for x in (xy, mask, ids)]
+        extra = [None if x is None else torch.as_tensor(x, device=dev)
+                 for x in (eps, img)]
+        if self.mesh is not None:
+            # rank 0's, into copies (a broadcast writes in place)
+            batch = [mesh_mod.broadcast(self.mesh, x.clone()) for x in batch]
+            extra = [None if x is None
+                     else mesh_mod.broadcast(self.mesh, x.clone())
+                     for x in extra]
+            scales = mesh_mod.broadcast(self.mesh, torch.tensor(
+                scales, device=dev)).cpu().numpy()
+            ids = batch[2].cpu().numpy()
+        eps, img = extra
         if img is not None:
             # one raster for every window of the batch
-            img = torch.as_tensor(img, device=dev).expand(
-                (self.max_windows,) + img.shape)
-        traj, scores, best = self._forward(
-            torch.as_tensor(xy, device=dev), torch.as_tensor(mask, device=dev),
-            torch.as_tensor(ids, device=dev),
-            None if eps is None else torch.as_tensor(eps, device=dev), img)
+            img = img.expand((self.max_windows,) + img.shape)
+        traj, scores, best = self._forward(*batch, eps, img)
         # the layer-by-layer IOC scores in the compute dtype; numpy has no
         # bfloat16
         traj, scores, best = (x.float().cpu().numpy()

@@ -12,7 +12,9 @@ place, so a crash never leaves a half-written checkpoint.
 Retention keeps the ``keep`` newest checkpoints or, with
 ``keep_best_metric``, the ``keep`` best by that (minimised) metric. As in
 the JAX package, a save of a step no newer than the latest is skipped.
-Saves are synchronous, so ``wait`` returns at once.
+Saves are synchronous, so ``wait`` returns at once. In a multi-process
+run only rank 0 writes (the ranks' training states are equal); every
+rank can restore.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.data.loader import LoaderState
+from desire_tpu_torch.parallel.mesh import process_index
 from desire_tpu_torch.params import init_desire, to_device
 from desire_tpu_torch.train.state import (TrainState, create_train_state,
                                           tree_leaves)
@@ -69,7 +72,10 @@ class CheckpointManager:
     def save(self, state: TrainState, loader_state: LoaderState,
              cfg: DesireConfig, metrics: dict | None = None) -> bool:
         """Write the state at ``state.step`` and the config. Returns False
-        (and writes nothing) when that step is no newer than the latest."""
+        (and writes nothing) when that step is no newer than the latest, or
+        on a rank other than 0."""
+        if process_index() != 0:
+            return False
         step = int(state.step)
         latest = self.latest_step()
         if latest is not None and step <= latest:

@@ -14,7 +14,19 @@ rolling back to the last good checkpoint.
     python -m desire_tpu_torch.train --resume 1 --save_dir save/
 
 ``--device cuda`` (the default) needs a CUDA device and raises without
-one. Parallel training (``mesh_data * mesh_k > 1``) is not ported.
+one.
+
+Data-parallel training (``--mesh_data N``, ``--mesh_k 1``) runs one
+process per device, each started with the same flags and its rank
+(``parallel/mesh.py``; rank r on ``cuda:{r % device count}``, NCCL where
+every rank has a card, gloo on the CPU or where ranks share one):
+
+    python -m desire_tpu_torch.train --mesh_data 2 --num_processes 2 \
+        --coordinator localhost:29500 --process_id 0 ...   # and 1
+
+Every rank trains on its rows of each batch; only rank 0 logs, writes
+checkpoints, evaluates (unsharded, while the others wait) and keeps
+best/. Lane-parallel training (``mesh_k > 1``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from desire_tpu_torch.config import (DesireConfig, add_config_flags,
 from desire_tpu_torch.data.loader import LoaderState, SDDLoader
 from desire_tpu_torch.eval.sampler import evaluate, fit_rank_blend
 from desire_tpu_torch.models.desire import init_desire
+from desire_tpu_torch.parallel import mesh as mesh_mod
 from desire_tpu_torch.params import require_device, to_device
 from desire_tpu_torch.train import checkpoint as ckpt_mod
 from desire_tpu_torch.train import trainer
@@ -59,17 +72,31 @@ def main(argv=None):
                         help="cap batches per epoch (0 = all)")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="write a torch.profiler Chrome trace of the "
-                             "first (at most 4) batches into this dir")
+                             "first (at most 4) batches into this dir "
+                             "(rank<r>/ in it, a rank of a mesh)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (needs a CUDA device) or cpu")
+    parser.add_argument("--log_every", type=int, default=20,
+                        help="batches between logged steps")
+    parser.add_argument("--coordinator", type=str, default="",
+                        help="multi-process: host:port where rank 0 listens; "
+                             "also set --num_processes and --process_id")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--dist_timeout", type=float, default=1800.0,
+                        help="seconds a collective waits for the other "
+                             "ranks")
     args = parser.parse_args(argv)
+    mesh_mod.init_multihost(args.coordinator, args.num_processes,
+                            args.process_id, args.device, args.dist_timeout)
     cfg = config_from_args(args)
     train(cfg, resume=bool(args.resume), eval_every=args.eval_every,
           max_eval_batches=args.max_eval_batches,
           max_train_batches=args.max_train_batches or None,
           profile_dir=args.profile_dir or None,
           max_recoveries=args.max_recoveries,
-          final_select_top=args.final_select_top, device=args.device)
+          final_select_top=args.final_select_top, device=args.device,
+          log_every=args.log_every, dist_timeout=args.dist_timeout)
     return 0
 
 
@@ -84,27 +111,39 @@ def _fresh_state(cfg: DesireConfig, device):
 def train(cfg: DesireConfig, resume: bool = False, eval_every: int = 1,
           max_eval_batches: int = 16, max_train_batches: int | None = None,
           profile_dir: str | None = None, max_recoveries: int = 3,
-          final_select_top: int = 3, device="cuda", log_every: int = 20):
+          final_select_top: int = 3, device="cuda", log_every: int = 20,
+          dist_timeout: float = 1800.0):
     """Train cfg.num_epochs epochs on ``device`` and return the final
     state. log_every: batches between logged steps (the finiteness check
     and the mid-epoch checkpoints, every cfg.save_every windows, ride on
-    it)."""
+    it). With mesh_data * mesh_k > 1 this process is one rank of the
+    process group (``parallel.mesh.init_multihost``), on its device of
+    ``device``'s type."""
     device = require_device(device)
+    mesh = None
     if cfg.mesh_data * cfg.mesh_k > 1:
-        raise NotImplementedError("meshed training is not ported")
+        mesh = mesh_mod.make_mesh(cfg.mesh_data, cfg.mesh_k, device,
+                                  dist_timeout)
+        if mesh is None:
+            raise ValueError(f"rank {mesh_mod.process_index()} is outside "
+                             f"the {cfg.mesh_data}x{cfg.mesh_k} mesh: start "
+                             "mesh_data * mesh_k processes")
+        device = mesh.device
+    is_main = mesh_mod.process_index() == 0
     log = MetricLogger(os.path.join(cfg.save_dir, "metrics.jsonl")
-                       if cfg.save_dir else None)
+                       if cfg.save_dir and is_main else None,
+                       quiet=not is_main)
     try:
         return _train(cfg, log, resume, eval_every, max_eval_batches,
                       max_train_batches, profile_dir, max_recoveries,
-                      final_select_top, device, log_every)
+                      final_select_top, device, log_every, mesh, is_main)
     finally:
         log.close()
 
 
 def _train(cfg, log, resume, eval_every, max_eval_batches,
            max_train_batches, profile_dir, max_recoveries, final_select_top,
-           device, log_every):
+           device, log_every, mesh, is_main):
     # train/test separation: with holdout='video' training sees only the
     # train split and the periodic eval runs on the held-out videos
     split = "train" if cfg.holdout != "none" else None
@@ -146,7 +185,7 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
     # where eval runs on a held-out split)
     best_mgr = pool_mgr = None
     best_metric = float("inf")
-    if mgr is not None and eval_every and eval_held_out:
+    if mgr is not None and eval_every and eval_held_out and is_main:
         best_mgr = ckpt_mod.CheckpointManager(
             os.path.join(cfg.save_dir, "best"), keep=1)
         if final_select_top > 1:
@@ -172,7 +211,7 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
             log.log({"event": "resume", "step": int(state.step),
                      "epoch": start_epoch, "batch": start_batch})
 
-    step_fn = trainer.make_train_step(cfg, loader.num_batches)
+    step_fn = trainer.make_train_step(cfg, loader.num_batches, mesh=mesh)
     save_interval = max(cfg.save_every // max(cfg.batch_size, 1), 1)
     recoveries = 0
     epoch = start_epoch
@@ -188,17 +227,19 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
                 # trace the first few batches; the main loop goes on after
                 # them (they took real steps)
                 traced = min(max_train_batches or 4, 4)
-                with profile_trace(profile_dir):
+                with profile_trace(profile_dir if mesh is None else
+                                   os.path.join(profile_dir, "rank%d"
+                                                % mesh_mod.process_index())):
                     state, _ = trainer.run_epoch(
                         state, loader, epoch, step_fn, log_fn=log_fn,
                         log_every=log_every, start_batch=epoch_start,
-                        max_batches=traced)
+                        max_batches=traced, mesh=mesh)
                 log.log({"event": "profile", "dir": profile_dir})
                 epoch_start += traced
             state, mean_loss = trainer.run_epoch(
                 state, loader, epoch, step_fn, log_fn=log_fn,
                 log_every=log_every, start_batch=epoch_start,
-                max_batches=max_train_batches)
+                max_batches=max_train_batches, mesh=mesh)
         except trainer.NonFiniteLossError as e:
             # roll back to the last good checkpoint and go on, at most
             # max_recoveries times, so that a run that always diverges
@@ -206,6 +247,9 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
             recoveries += 1
             if mgr is None or recoveries > max_recoveries:
                 raise
+            # only rank 0 writes checkpoints: the others restore after it
+            # has written its last
+            mesh_mod.barrier(mesh)
             got = mgr.restore(_fresh_state(cfg, device))
             if got is None:
                 raise
@@ -218,7 +262,8 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
         log.log({"event": "epoch", "epoch": epoch, "mean_loss": mean_loss})
         if mgr is not None:
             mgr.save(state, loader.state, cfg)
-        if eval_every and (epoch + 1) % eval_every == 0:
+        if eval_every and (epoch + 1) % eval_every == 0 and is_main:
+            # rank 0 alone, unsharded (no mesh), while the others wait
             ev = evaluate(state.params, cfg, eval_loader,
                           max_batches=max_eval_batches)
             log.log(dict(ev, event="eval", epoch=epoch,
@@ -231,10 +276,12 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
             if pool_mgr is not None:
                 pool_mgr.save(state, loader.state, cfg,
                               metrics={"minADE_px": float(ev["minADE_px"])})
+        mesh_mod.barrier(mesh)
         epoch += 1
     if pool_mgr is not None:
         _final_best_selection(cfg, pool_mgr, best_mgr, eval_loader, log,
                               device)
+    mesh_mod.barrier(mesh)
     return state
 
 

@@ -5,6 +5,15 @@ One step: the optional speed-augmentation zoom, ``desire_loss`` and its
 gradients (through the training kernels on CUDA tensors), the gradient
 norm before clipping, the optimizer update (``train/state.py``) and
 step + 1. Every random draw comes from the state's generator.
+
+Data-parallel (a ``parallel.mesh.Mesh`` of mesh_data ranks, mesh_k 1):
+every rank holds its rows of each batch (``run_epoch`` has the loader
+assemble only those), draws the step's global noise from its generator
+(the same state on every rank) and keeps its rows of it, computes its
+share of the loss (global normalisers, ``desire_loss``), and sums the
+gradients and metrics over the ranks in one all-reduce; the gradient norm,
+the clip and Adam then run the same on every rank, so the params stay
+equal.
 """
 
 from __future__ import annotations
@@ -18,34 +27,73 @@ import torch
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import desire
+from desire_tpu_torch.parallel import mesh as mesh_mod
 from desire_tpu_torch.train.state import (TrainState, apply_updates,
                                           global_norm, tree_leaves,
                                           tree_unflatten)
 
 
-def make_train_step(cfg: DesireConfig, steps_per_epoch: int) -> Callable:
+def step_noise(cfg: DesireConfig, generator, xy_shape, device,
+               noise=None) -> dict:
+    """The random draws of one training step on a batch of ``xy_shape``
+    (B, T, A, 2), from generator, in the order the step consumes them:
+    "zoom" (B,) log zoom factors in [-speed_aug, speed_aug) of the speed
+    augmentation (speed_aug > 0), "lane_u" (B, A, K) uniforms of the
+    variety subset, "eps" (B*A, K, lat) latent noise, "keep_x" (B*A, To,
+    emb) and "keep_y" (B*A, Tf, emb) dropout keep-masks (keep_prob < 1).
+    Draws given in ``noise`` are kept and not drawn."""
+    b, t, a, _ = xy_shape
+    k, emb = cfg.num_samples, cfg.embedding_size
+    to = cfg.obs_len if cfg.protocol == "paper" else cfg.seq_length
+    shapes = {"lane_u": (b, a, k), "eps": (b * a, k, cfg.latent_size)}
+    if cfg.keep_prob < 1.0:
+        shapes.update(keep_x=(b * a, to, emb), keep_y=(b * a, t - to, emb))
+    out = dict(noise or {})
+    if cfg.speed_aug > 0 and out.get("zoom") is None:
+        out["zoom"] = (torch.rand((b,), generator=generator, device=device)
+                       * 2.0 - 1.0) * cfg.speed_aug
+    for key, shape in shapes.items():
+        if out.get(key) is None:
+            draw = torch.randn if key == "eps" else torch.rand
+            out[key] = draw(shape, generator=generator, device=device)
+            if key.startswith("keep"):
+                out[key] = out[key] < cfg.keep_prob
+    return out
+
+
+def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
+                    mesh=None) -> Callable:
     """step_fn(state, xy, mask, ids, img=None, noise=None) -> (new state,
     metrics).
 
     img: the batch's (B, G, G, Ci) scene raster (cfg.scene_image_channels
-    > 0; zeros when not given). noise: optional pinned draws of the step,
-    the keys of ``desire.desire_loss`` plus "zoom" (B,), the log zoom
-    factors in [-speed_aug, speed_aug) of the speed augmentation; missing
-    ones come from state.generator. metrics are the loss's, plus
-    "grad_norm" of the gradients before clipping."""
+    > 0; zeros when not given). noise: optional pinned draws of the step
+    (``step_noise``'s keys); missing ones come from state.generator.
+    metrics are the loss's, plus "grad_norm" of the gradients before
+    clipping. mesh: a data-parallel ``parallel.mesh.Mesh``; xy, mask, ids
+    and img are then the rank's rows of the global batch, noise the global
+    draws, and the metrics the global ones (the module's docstring)."""
+    if mesh is not None and mesh.shape[1] > 1:
+        raise NotImplementedError(
+            "lane-parallel training (mesh_k > 1) is not ported yet; "
+            "data-parallel training (mesh_data > 1, mesh_k 1) is")
+    data = mesh if mesh is not None and mesh.size > 1 else None
 
     def step_fn(state: TrainState, xy, mask, ids, img=None, noise=None):
         gen = state.generator
         xy = xy.float()
+        global_shape = list(xy.shape)
+        if data is not None:
+            global_shape[0] *= data.shape[0]
+        noise = step_noise(cfg, gen, global_shape, xy.device, noise)
+        if data is not None:
+            # the rank's rows of every draw (rows lead each of them)
+            noise = {k: v[data.rows(v.shape[0])] for k, v in noise.items()}
         if cfg.speed_aug > 0:
             # a global window zoom around the scene center, log-uniform in
             # [e^-a, e^a], clipped to stay in the scene
-            log_s = (noise or {}).get("zoom")
-            if log_s is None:
-                log_s = (torch.rand((xy.shape[0],), generator=gen,
-                                    device=xy.device) * 2.0 - 1.0
-                         ) * cfg.speed_aug
-            s = torch.exp(torch.as_tensor(log_s, device=xy.device).reshape(
+            s = torch.exp(torch.as_tensor(noise["zoom"],
+                                          device=xy.device).reshape(
                 -1, 1, 1, 1))
             xy = torch.clamp(0.5 + (xy - 0.5) * s, 0.0, 1.0)
         leaves = [x.detach().requires_grad_(True)
@@ -53,11 +101,14 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int) -> Callable:
         params = tree_unflatten(state.params, leaves)
         total, metrics = desire.desire_loss(params, cfg, xy, mask, ids,
                                             step=state.step, noise=noise,
-                                            generator=gen, scene_image=img)
+                                            generator=gen, scene_image=img,
+                                            mesh=data)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        if data is not None:
+            grads, metrics = _sum_over_data(data, grads, metrics)
         metrics["grad_norm"] = global_norm(grads)
         p, mu, nu, count = apply_updates(cfg, steps_per_epoch, state,
                                          tree_unflatten(state.params, grads))
@@ -67,23 +118,39 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int) -> Callable:
     return step_fn
 
 
+def _sum_over_data(mesh, grads, metrics):
+    """The gradients and metrics summed over the data group, in one
+    all-reduce of one flat buffer."""
+    names = list(metrics)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [metrics[k].reshape(1).to(grads[0].dtype)
+                        for k in names])
+    parts = mesh_mod.all_sum(mesh, flat).split(
+        [g.numel() for g in grads] + [1] * len(names))
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            {k: p.reshape(()) for k, p in zip(names, parts[len(grads):])})
+
+
 class NonFiniteLossError(RuntimeError):
     """Raised when training produces non-finite losses repeatedly: fail
     fast instead of carrying NaN parameters on."""
 
 
-def make_eval_forward(cfg: DesireConfig, k_samples=None) -> Callable:
+def make_eval_forward(cfg: DesireConfig, k_samples=None,
+                      mesh=None) -> Callable:
     """fwd(params, xy, mask, ids, img=None, eps=None, generator=None,
     z_temp=None) -> ``desire_forward(train=False)``'s outputs: img the
     batch's scene raster, the latent noise from eps (B*A, K, lat) when
     given, else from generator; z_temp the optional (B, A) latent
-    temperature."""
+    temperature. mesh: a ``parallel.mesh.Mesh``, the forward then
+    collective over the global batch (``desire_forward``)."""
     def fwd(params, xy, mask, ids, img=None, eps=None, generator=None,
             z_temp=None):
         return desire.desire_forward(params, cfg, xy, mask, ids, eps=eps,
                                      generator=generator,
                                      k_samples=k_samples, train=False,
-                                     z_temp=z_temp, scene_image=img)
+                                     z_temp=z_temp, scene_image=img,
+                                     mesh=mesh)
     return fwd
 
 
@@ -119,16 +186,29 @@ def batch_to_device(batch, device) -> tuple:
 
 def run_epoch(state: TrainState, loader, epoch: int, step_fn,
               log_fn=None, log_every: int = 20, start_batch: int = 0,
-              max_batches: int | None = None, max_bad_steps: int = 3):
+              max_batches: int | None = None, max_bad_steps: int = 3,
+              mesh=None):
     """Drive one epoch over ``loader.epoch_batches(epoch, start_batch)``
     (batches with xy, mask and ids arrays, and a scene raster ``image``
     where the config has imagery), at most max_batches of them.
-    The batches go to the params' device (``batch_to_device``). Returns
+    The batches go to the params' device (``batch_to_device``). mesh: a
+    data-parallel ``parallel.mesh.Mesh`` (step_fn made with it): the
+    loader assembles only this rank's rows of each batch. Returns
     (state, mean loss)."""
     device = tree_leaves(state.params)[0].device
     losses_acc, t0 = [], time.time()
     bad = 0
-    batches = loader.epoch_batches(epoch, start_batch)
+    if mesh is not None and mesh.shape[0] > 1:
+        # the step's rows are a fixed block of cfg.batch_size rows: a short
+        # remainder batch would not split
+        if not loader.drop_remainder:
+            raise ValueError("data-parallel training needs a loader with "
+                             "drop_remainder batches")
+        batches = loader.epoch_batches(
+            epoch, start_batch,
+            rows=mesh_mod.local_batch_rows(mesh, loader.cfg.batch_size))
+    else:
+        batches = loader.epoch_batches(epoch, start_batch)
     if max_batches is not None:
         # stop before the loader assembles the next batch: its position
         # (loader.state, which a checkpoint records) stays at the last

@@ -17,13 +17,17 @@ import time
 
 
 class MetricLogger:
-    def __init__(self, path: str | None = None):
+    def __init__(self, path: str | None = None, quiet: bool = False):
+        """quiet: print nothing (a multi-process run's other ranks)."""
         if path:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._f = open(path, "a", buffering=1) if path else None
+        self._quiet = quiet
         self._t0 = time.time()
 
     def log(self, record: dict) -> None:
+        if self._quiet:
+            return
         record = dict(record, t=round(time.time() - self._t0, 3))
         line = json.dumps(record, sort_keys=True, default=float)
         print(line)

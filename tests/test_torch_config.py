@@ -92,8 +92,9 @@ def test_flags_match():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter: desire_tpu_torch, all its submodules (the
-    data loader, the eval harness, the checkpoint, the training, evaluation
-    and forecasting entry points and the serving bench by name),
+    data loader, the eval harness, the checkpoint, the parallel mesh, the
+    training, evaluation and forecasting entry points and the serving bench
+    by name),
     chip_smoke, chip_time_training and chip_time_serving, and then neither
     jax nor desire_tpu is loaded."""
     code = """
@@ -102,6 +103,7 @@ import desire_tpu_torch
 import desire_tpu_torch.data.loader
 import desire_tpu_torch.eval.sampler
 import desire_tpu_torch.train.checkpoint
+import desire_tpu_torch.parallel.mesh
 import desire_tpu_torch.train.run
 import desire_tpu_torch.evaluate
 import desire_tpu_torch.predict

@@ -8,6 +8,9 @@ This file imports no JAX, so it runs on a machine without it:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +30,10 @@ SCORE_TOL = dict(rtol=2e-4, atol=2e-4)
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # float32 means float32: no TF32 in cuBLAS or in cuDNN's convolutions
+    # (the scene CNN), as chip_smoke.py sets it
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -694,3 +700,86 @@ def test_predictor_with_a_raster_on_the_card(cuda_device):
         np.testing.assert_allclose(got["scores"], ref["scores"],
                                    **SCORE_TOL)
     assert not np.allclose(out["cpu"][0]["scores"], out["cpu"][1]["scores"])
+
+
+def _sharded_rank(rank, port, workdir):
+    """A rank of test_sharded_kernels_two_ranks_on_one_card: the sharded
+    sampler and IOC wrappers on its block of a (1, 2) and a (2, 1) mesh on
+    cuda:0 (gloo), the blocks gathered, rank 0's written."""
+    from desire_tpu_torch.parallel import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_mod.init_multihost(f"localhost:{port}", 2, rank, "cuda", 120.0)
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    cfg = _cfg()
+    p = _params(cfg, "cuda")
+    out = {}
+    for shape in ((1, 2), (2, 1)):
+        m = mesh_mod.make_mesh(*shape, device="cuda", timeout_s=120.0)
+        s = [x.to(m.device) for x in inp["sampler"]]
+        n, k = s[3].shape[:2]
+        r = m.rows(n)
+        dec_h, hx = sgm_fused.sgm_sample_decode_sharded(
+            m, p["sgm"], *(x[r] for x in s), cfg.pred_len)
+        i = [x.to(m.device) for x in inp["ioc"]]
+        b = i[0].shape[0]
+        rb, ln = m.rows(b), m.lanes(k)
+        refined, scores = ioc_fused.ioc_refine_sharded(
+            m, p["ioc"], p["scf"], i[0][rb][:, :, ln].contiguous(),
+            i[1][rb][:, :, ln].contiguous(), *(x[rb] for x in i[2:]),
+            num_refine=cfg.num_refine, delta_scale=_DELTA_SCALE)
+        got = mesh_mod.assemble(m, [(dec_h, (n, k) + dec_h.shape[2:])], 1)
+        got += mesh_mod.assemble(m, [(hx, (n,) + hx.shape[1:])])
+        got += mesh_mod.assemble(
+            m, [(refined, (b,) + refined.shape[1:2] + (k,)
+                 + refined.shape[3:]),
+                (scores, (b,) + scores.shape[1:2] + (k,))], 2)
+        out[shape] = [x.cpu() for x in got]
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "out.pt"))
+    mesh_mod.barrier(m)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_kernels_two_ranks_on_one_card(cuda_device, tmp_path):
+    """The sharded sampler and IOC wrappers, two ranks on one card joined by
+    gloo, on (1, 2) and (2, 1) meshes: the gathered blocks against the
+    unsharded kernels on the same inputs (float32)."""
+    from test_torch_parallel import _free_port, spawn
+    cfg = _cfg()
+    p = _params(cfg, cuda_device)
+    rng = np.random.default_rng(6)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    n, b, a, k, t = 8, 2, cfg.max_num_obj, 4, cfg.pred_len
+    obs = np.ones((n, cfg.obs_len))
+    obs[3, :2] = 0.0
+    sampler = [f(np.abs(rng.standard_normal((n, cfg.obs_len,
+                                             cfg.embedding_size)))),
+               f(obs), f(np.abs(rng.standard_normal((n, cfg.d_dim)))),
+               f(rng.standard_normal((n, k, cfg.latent_size)))]
+    live = np.ones((b, a))
+    live[:, -1] = 0.0
+    ioc = [f(rng.uniform(0.2, 0.8, (b, a, k, t, 2))),
+           f(np.tanh(rng.standard_normal((b, a, k, t, cfg.d_dim)))),
+           f(rng.standard_normal((b, cfg.scene_grid, cfg.scene_grid,
+                                  cfg.scene_channels))),
+           f(live), f(np.ones((b, a, t)))]
+    torch.save(dict(sampler=sampler, ioc=ioc), tmp_path / "inputs.pt")
+    port = _free_port()
+    spawn(__file__, lambda r: [str(r), str(port), str(tmp_path)], 2)
+    dev = lambda xs: [x.to(cuda_device) for x in xs]
+    ref = list(sgm_fused.sgm_sample_decode(p["sgm"], *dev(sampler),
+                                           cfg.pred_len))
+    ref += ioc_fused.ioc_refine(p["ioc"], p["scf"], *dev(ioc),
+                                num_refine=cfg.num_refine,
+                                delta_scale=_DELTA_SCALE)
+    for shape, got in torch.load(tmp_path / "out.pt").items():
+        for name, g, r in zip(("dec_h", "hx", "refined", "scores"), got,
+                              ref):
+            tol = SCORE_TOL if name == "scores" else TOL
+            np.testing.assert_allclose(g.numpy(), r.cpu().numpy(),
+                                       err_msg=f"{shape} {name}", **tol)
+
+
+if __name__ == "__main__":
+    _sharded_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])
