@@ -76,9 +76,27 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    against the unsharded steps from the same state (losses and gradient
    norms, the ranks' params bitwise equal, rank 0 alone checkpointing),
    one float32 (2, 1) step against the plain unsharded step on the CPU;
-   then a one-rank NCCL group all-reduces on the card;
-11. prints one JSON line of per-kernel results (launches of phases 4, 6,
-   7, 9 and 10), then, last, the device line.
+   lane-parallel training (the IOC on a rank's block of the lanes): 3
+   ``run_epoch`` steps at B = 64 on (1, 2) and on (2, 2) against the
+   unsharded steps (losses, gradient norms, the ranks' params bitwise
+   equal, rank 0 alone checkpointing), each rank's IOC training and NLL
+   calls held against their plain versions, one social_freeze step on
+   (2, 2), one fused_train=False step on (1, 2) (the scene-pool kernels
+   per rank), one float32 (2, 2) step against the plain unsharded step on
+   the CPU; then a one-rank NCCL group all-reduces on the card;
+11. a model with the deconv mask decoder (vae_dec='conv') at the flagship
+   width: ``deconv2d`` at each layer of the stack and the decoder on the
+   card against the CPU (float32), the float32 forward at a small shape
+   against the plain forward on the CPU, three bf16 ``Predictor``
+   requests of 64 windows (every IOC call held against plain; the IOC
+   kernel launched, the sampler not: it needs the MLP decoder), two
+   ``run_epoch`` steps with remat off and on (the same losses, peak
+   memory, step time); the reference facade ``compat.DESIREModel`` on the
+   card: 3 ``train_step`` calls at the reference layout and one
+   ``sample(num=12)`` (its kernel calls held against plain, the output's
+   shape and finiteness);
+12. prints one JSON line of per-kernel results (launches of phases 4, 6,
+   7, 9, 10 and 11), then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -496,18 +514,20 @@ def ioc_train_grads(params, cfg, args, wts, kernel, social_freeze=False):
     return outs, dict(zip(leaves, grads))
 
 
-def check_grads_bf16(name, got, ref):
-    """Relative L2 and relative mean absolute error of one gradient leaf."""
+def check_grads_bf16(name, got, ref, verbose=True):
+    """Relative L2 and relative mean absolute error of one gradient leaf
+    (verbose=False prints only a failure)."""
     g, r = got.float(), ref.float()
     diff = g - r
     rel_l2 = float(diff.norm() / max(float(r.norm()), 1e-30))
     rel_mean = float(diff.abs().mean() / max(float(r.abs().mean()), 1e-30))
     ok = (bool(torch.isfinite(g).all()) and rel_l2 <= BF16_GRAD_REL_L2
           and rel_mean <= BF16_GRAD_REL_MEAN)
-    print(f"  d {name}: rel_l2={rel_l2:.3e} (<= {BF16_GRAD_REL_L2}) "
-          f"rel_mean_abs={rel_mean:.3e} (<= {BF16_GRAD_REL_MEAN}) "
-          f"max_abs_err={float(diff.abs().max()):.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if verbose or not ok:
+        print(f"  d {name}: rel_l2={rel_l2:.3e} (<= {BF16_GRAD_REL_L2}) "
+              f"rel_mean_abs={rel_mean:.3e} (<= {BF16_GRAD_REL_MEAN}) "
+              f"max_abs_err={float(diff.abs().max()):.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"d {name}: bf16 IOC backward disagrees with "
                              f"autograd through the plain version")
@@ -717,6 +737,13 @@ def check_launches(label, launches, names, least):
         if launches[name] < least:
             raise AssertionError(f"{label}: kernel {name} launched "
                                  f"{launches[name]} times (want >= {least})")
+
+
+def check_not_launched(label, launches, names):
+    for name in names:
+        if launches[name]:
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{launches[name]} times (want 0)")
 
 
 def training_phase(dev, smi, rng):
@@ -1356,26 +1383,183 @@ def recorded_serving_calls():
         ops.ioc_refine = ioc_fused.ioc_refine = saved[1]
 
 
-def check_recorded_calls(calls, verbose=True):
+def check_recorded_calls(calls, verbose=True, against_f32=False):
     """Hold each recorded bf16 serving kernel call (recorded_serving_calls)
     against its plain version on the inputs that call was given (BF16_TOL,
     BF16_MEAN_TOL; verbose=False prints only failures). Returns {kernel
-    name: [calls checked, max abs error]}."""
+    name: [calls checked, max abs error]}. against_f32: the IOC calls by
+    check_bf16_noise (the plain version's own error against the float32
+    computation bounds the max where it exceeds BF16_TOL), for the
+    inputs of the conv model's path; the row then also holds that
+    error's max."""
     from desire_tpu_torch.ops import ioc_fused, sgm_fused
     out = {}
     for name, a, kw, got in calls:
         kw = {k: v for k, v in kw.items() if k != "weights"}
+        row = out.setdefault(name, [0, 0.0] + ([0.0] if against_f32
+                                                and name != "sgm_sample"
+                                                else []))
+        row[0] += 1
         if name == "sgm_sample":
             ref = sgm_fused.sgm_sample_decode_plain(*a, **kw)
             keys = ("dec_h", "hx")
         else:
             ref = ioc_fused.ioc_refine_plain(*a, **kw)
             keys = ("refined", "scores")
-        row = out.setdefault(name, [0, 0.0])
-        row[0] += 1
-        for key, x, y in zip(keys, got, ref):
-            row[1] = max(row[1], check_bf16(key, x, y, verbose))
+        if name == "sgm_sample" or not against_f32:
+            for key, x, y in zip(keys, got, ref):
+                row[1] = max(row[1], check_bf16(key, x, y, verbose))
+        else:
+            p_ioc, p_scf, traj, dec_h, fmap, *rest = a
+            exact = ioc_fused.ioc_refine_plain(p_ioc, p_scf, traj,
+                                               dec_h.float(), fmap.float(),
+                                               *rest, **kw)
+            for key, x, y, z in zip(keys, got, ref, exact):
+                err, noise = check_bf16_noise(key, x, y, z)
+                row[1], row[2] = max(row[1], err), max(row[2], noise)
+            del exact
         del ref
+    return out
+
+
+def check_bf16_noise(name, got, ref, exact):
+    """A bf16 IOC kernel output against the plain bf16 version's (ref) on
+    the path's inputs: the mean absolute error within BF16_MEAN_TOL; the
+    max within BF16_TOL or, where larger, within the plain version's own
+    max error against the float32 computation (exact). BF16_TOL was set on
+    phase 6's random inputs; on a training step's inputs the scores reach
+    |s| ~ 20, rounding flips compound over more of the 4 passes x 12 GRU
+    steps, and both bf16 versions lie up to ~2 (scores) from float32, the
+    kernel no farther than the plain version (chip_smoke.py phase 10,
+    NVIDIA H100): a kernel fault moves its outputs by more than bf16
+    rounding does, and the mean error stays bounded as before. Prints only
+    a failure. Returns (max abs error, the plain version's against
+    float32)."""
+    mx, mean = errors(got, ref)
+    noise = errors(ref, exact)[0]
+    bound = max(BF16_TOL[name], noise)
+    ok = (bool(torch.isfinite(got).all()) and mx <= bound
+          and mean <= BF16_MEAN_TOL[name])
+    if not ok:
+        print(f"  {name}: max_abs_err={mx:.3e} (<= {bound:.3e}: "
+              f"{BF16_TOL[name]} or the plain bf16 version's max error "
+              f"against float32, {noise:.3e}) mean_abs_err={mean:.3e} (<= "
+              f"{BF16_MEAN_TOL[name]}) FAIL", flush=True)
+        raise AssertionError(f"{name}: bf16 kernel disagrees with its plain "
+                             f"version (max {mx:.3e}, mean {mean:.3e})")
+    return mx, noise
+
+
+@contextlib.contextmanager
+def recorded_training_calls():
+    """Record the inputs of every call of the training kernels' call
+    sites: the trainable IOC (``ops.ioc_refine_train``; under a mesh, its
+    launches on the rank's lane block inside ``ioc_refine_train_sharded``)
+    and the NLL (``ops.bivariate_nll_sum``), which go through as usual;
+    yields the list of (kernel name, detached args, kwargs)."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.ops import ioc_bwd
+    calls = []
+    saved = ops.ioc_refine_train, ops.bivariate_nll_sum
+
+    def detach(x):
+        if isinstance(x, dict):
+            return {k: detach(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [detach(v) for v in x]
+        return x.detach() if torch.is_tensor(x) else x
+
+    def recorder(name, fn):
+        def call(*a, **kw):
+            calls.append((name, detach(list(a)), kw))
+            return fn(*a, **kw)
+        return call
+    ops.ioc_refine_train = ioc_bwd.ioc_refine_train = recorder(
+        "ioc_refine_train", saved[0])
+    ops.bivariate_nll_sum = recorder("nll", saved[1])
+    try:
+        yield calls
+    finally:
+        ops.ioc_refine_train = ioc_bwd.ioc_refine_train = saved[0]
+        ops.bivariate_nll_sum = saved[1]
+
+
+def check_training_calls(calls, cfg, seed=0):
+    """Hold each recorded bf16 training kernel call
+    (recorded_training_calls) against its plain version on the inputs it
+    was given: the IOC training forward kernel's refined positions, float32
+    scores and every pass's positions (check_bf16_noise, against the
+    float32 computation too) and, for a test loss of the training op's
+    outputs, its backward kernel against autograd through the plain
+    version, leaf by leaf (BF16_GRAD_REL_*), as phase 6b; the NLL forward
+    (NLL_TOL) and its backward kernel for a random cotangent
+    (NLL_GRAD_TOL). Prints only failures. Returns {kernel name: {"calls",
+    "fwd" and "bwd" max abs errors; for the IOC "noise", the plain bf16
+    version's max error against float32 by output}}.
+
+    The forward is compared before the training op rounds its scores to
+    the compute dtype (the same cast on both sides): on the path's data
+    scores reach |s| ~ 16, where one bf16 step is 0.125."""
+    from desire_tpu_torch.ops import ioc_fused, nll
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    out = {}
+    for name, a, kw in calls:
+        row = out.setdefault(name, {"calls": 0, "fwd": 0.0, "bwd": 0.0})
+        row["calls"] += 1
+        if name == "ioc_refine_train":
+            p_ioc, p_scf, *data = a
+            traj, dec_h, fmap, live, fut = data
+            w = ioc_fused.pack_ioc(p_ioc, p_scf, dec_h.dtype, traj.device,
+                                   traj.shape[1])
+            fwd = (traj.float().contiguous(), dec_h.contiguous(),
+                   fmap.contiguous(), live.float().contiguous(),
+                   fut.float().contiguous())
+            got = ioc_fused.ioc_refine_cuda(w, *fwd, collect_iters=True,
+                                            **kw)
+            ref = ioc_fused.ioc_refine_plain(p_ioc, p_scf, *fwd,
+                                             collect_iters=True, **kw)
+            exact = ioc_fused.ioc_refine_plain(
+                p_ioc, p_scf, fwd[0], fwd[1].float(), fwd[2].float(),
+                *fwd[3:], collect_iters=True, **kw)
+            noise = row.setdefault("noise", {})
+            for out_name, key, x, y, z in zip(
+                    ("refined", "scores", "iters"),
+                    ("refined", "scores", "refined"), got, ref, exact):
+                err, nz = check_bf16_noise(key, x, y, z)
+                row["fwd"] = max(row["fwd"], err)
+                noise[out_name] = max(noise.get(out_name, 0.0), nz)
+            del got, ref, exact
+            params = {"ioc": p_ioc, "scf": p_scf}
+            args = [x.clone().requires_grad_(i < 3)
+                    for i, x in enumerate(data)]
+            b, na, k = traj.shape[:3]
+            wts = torch.randn((b, na, k), generator=gen).to(traj.device)
+            freeze = kw.get("social_freeze", False)
+            _, g_k = ioc_train_grads(params, cfg, args, wts, kernel=True,
+                                     social_freeze=freeze)
+            _, g_p = ioc_train_grads(params, cfg, args, wts, kernel=False,
+                                     social_freeze=freeze)
+            row["bwd"] = max(row["bwd"], *(check_grads_bf16(
+                leaf, g_k[leaf], g_p[leaf], verbose=False) for leaf in g_p))
+            del g_k, g_p
+        else:
+            raw5, target, mask = a
+            got = nll.nll_fwd_cuda(raw5, target, mask)
+            ref = nll.bivariate_nll_plain(raw5, target, mask)
+            if not torch.allclose(got, ref, **NLL_TOL):
+                raise AssertionError("a recorded NLL forward call disagrees "
+                                     "with its plain version")
+            g = torch.randn(got.shape, generator=gen).to(got.device)
+            got_b = nll.nll_bwd_cuda(raw5, target, mask, g)
+            r = raw5.clone().requires_grad_(True)
+            ref_b, = torch.autograd.grad(
+                (nll.bivariate_nll_plain(r, target, mask) * g).sum(), [r])
+            if not torch.allclose(got_b, ref_b, **NLL_GRAD_TOL):
+                raise AssertionError("a recorded NLL backward call disagrees"
+                                     " with autograd through its plain "
+                                     "version")
+            row["fwd"] = max(row["fwd"], errors(got, ref)[0])
+            row["bwd"] = max(row["bwd"], errors(got_b, ref_b)[0])
     return out
 
 
@@ -2059,6 +2243,14 @@ MESH_WALL_S = 300.0
 # products in another grouping move a loss by ~1e-3 relative, and the
 # params' differences grow over the steps
 DP_REL_TOL = 1e-2
+# lane-parallel bf16 steps against the unsharded ones: losses within 1e-3
+# relative, gradient norms 1e-2 (the data-parallel steps' measured margins
+# are 3e-5 and 6e-4)
+LANE_LOSS_TOL, LANE_NORM_TOL = 1e-3, 1e-2
+# lane-parallel training: the meshes, and its variants' one step each
+LANE_SHAPES = ((1, 2), (2, 2))
+LANE_VARIANTS = {"social_freeze": ((2, 2), dict(social_freeze=True)),
+                 "fused_train=False": ((1, 2), dict(fused_train=False))}
 
 
 def warm_step_ms(logged):
@@ -2076,6 +2268,111 @@ def free_port():
         return sock.getsockname()[1]
 
 
+def lane_rank(rank, meshes, inp, dev, say):
+    """Phase 10's lane-parallel training on this rank: on each mesh of
+    LANE_SHAPES that holds it, MESH_STEPS run_epoch steps of the flagship
+    training from the unsharded run's state (its rows, all 20 lanes of
+    the sampler, 10 of the IOC), each IOC training and NLL call held
+    against its plain version (phase 6's tolerances), the ranks' params
+    compared and a checkpoint saved (rank 0 alone writes); one step of
+    each LANE_VARIANTS config; on (2, 2), one float32 step at small_cfg
+    held against the plain unsharded step on the CPU (rank 0). Returns
+    (report, launches of the default and fused_train=False runs,
+    launches of the social_freeze run)."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.data.loader import LoaderState
+    from desire_tpu_torch.parallel import mesh as mesh_mod
+    from desire_tpu_torch.params import to_device
+    from desire_tpu_torch.train.checkpoint import CheckpointManager
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    from desire_tpu_torch.train.trainer import make_train_step, run_epoch
+
+    report = {}
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    launches_fz = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def run(cfg, m, batches, into):
+        loader = SyntheticLoader(cfg, None, 0)
+        loader.batches = batches
+        state = create_train_state(cfg, to_device(inp["params"], dev),
+                                   seed=0)
+        step_fn = make_train_step(cfg, steps_per_epoch=190, mesh=m)
+        logged = []
+        ops.reset_launch_counts()
+        with recorded_training_calls() as calls:
+            state, _ = run_epoch(state, loader, 0, step_fn, log_every=1,
+                                 log_fn=lambda mm, st: logged.append(mm),
+                                 mesh=m)
+        torch.cuda.synchronize()
+        for name, n in ops.LAUNCHES.items():
+            into[name] += n
+        checked = check_training_calls(calls, cfg, seed=rank)
+        del calls
+        flat = torch.cat([x.reshape(-1) for x in tree_leaves(state.params)])
+        equal = bool(torch.equal(mesh_mod.broadcast(m, flat.clone()), flat))
+        return state, {"losses": [mm["loss"] for mm in logged],
+                       "grad_norms": [mm["grad_norm"] for mm in logged],
+                       "params_equal": equal, "checked": checked,
+                       "step_ms": (warm_step_ms(logged) if len(logged) > 1
+                                   else None)}
+
+    cfg = flagship_cfg()
+    for shape in LANE_SHAPES:
+        m = meshes[shape]
+        if m is None:
+            continue
+        name = f"{shape[0]}x{shape[1]}"
+        state, rep = run(cfg, m, inp["batches"], launches)
+        rep["checkpoint_written"] = CheckpointManager(
+            os.path.join(inp["tmp"], f"ckpt_{name}_rank{rank}")).save(
+            state, LoaderState(), cfg)
+        report[name] = rep
+        say(f"lane-parallel {name}, {MESH_STEPS} steps on rows "
+            f"{m.rows(cfg.batch_size)}, IOC lanes "
+            f"{m.lanes(cfg.num_samples)}: {rep['step_ms']:.3f} ms a step "
+            f"after the first (host clock), losses {rep['losses']}, params "
+            f"equal to rank 0's: {rep['params_equal']}; calls held against "
+            f"plain {rep['checked']}")
+    for label, (shape, kw) in LANE_VARIANTS.items():
+        m = meshes[shape]
+        if m is None:
+            continue
+        _, rep = run(flagship_cfg(**kw), m, inp["batches"][:1],
+                     launches_fz if kw.get("social_freeze") else launches)
+        report[label] = rep
+        say(f"lane-parallel {label} on {shape}: loss {rep['losses']}, "
+            f"calls held against plain {rep['checked']}")
+    m = meshes[(2, 2)]
+    if m is not None:
+        check_meshed_step(m, small_cfg(num_samples=4), inp["snoise4"], inp,
+                          dev, "float32 (2, 2) lane-parallel step on the "
+                          "card vs the plain unsharded step on the CPU")
+    return report, launches, launches_fz
+
+
+def check_meshed_step(m, scfg, noise, inp, dev, note):
+    """One float32 make_train_step(mesh=m) step at scfg (params
+    inp["sparams"], batch inp["sbatch"], the global draws ``noise``) on
+    the rank's rows on the card; rank 0 holds its params and metrics
+    against the plain unsharded step on the CPU (check_step_rule)."""
+    from desire_tpu_torch.params import to_device
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    from desire_tpu_torch.train.trainer import make_train_step
+
+    def step(where, mesh, part):
+        T = lambda x: torch.as_tensor(x, device=where)
+        st = create_train_state(scfg, to_device(inp["sparams"], where),
+                                seed=0)
+        st, met = make_train_step(scfg, 190, mesh=mesh)(
+            st, *(T(x)[part] for x in inp["sbatch"]),
+            noise={k: T(v) for k, v in noise.items()})
+        return tree_leaves(st.params), met
+    card = step(dev, m, m.rows(scfg.batch_size))
+    if m.coords == (0, 0):
+        check_step_rule(card, step("cpu", None, slice(None)),
+                        scfg.learning_rate, note)
+
+
 def mesh_rank(rank, port, tmp):
     """Phase 10, rank ``rank`` of MESH_RANKS on cuda:0 (gloo): (a) the bf16
     serving forward on every mesh of MESH_SHAPES that holds the rank, each
@@ -2084,8 +2381,9 @@ def mesh_rank(rank, port, tmp):
     run_epoch steps of the flagship training on the rank's 32 rows, the
     ranks' params compared, a checkpoint saved (rank 0 alone writes), and
     one float32 step at small_cfg held against the plain unsharded step on
-    the CPU (rank 0). Writes ``rank<r>.json``: launches of (a) and (b),
-    times, losses."""
+    the CPU (rank 0); (c) lane-parallel training (:func:`lane_rank`).
+    Writes ``rank<r>.json``: launches of (a), (b) and (c) (social_freeze's
+    apart), times, losses."""
     from desire_tpu_torch import ops
     from desire_tpu_torch.data.loader import LoaderState
     from desire_tpu_torch.models.desire import (desire_forward,
@@ -2176,24 +2474,14 @@ def mesh_rank(rank, port, tmp):
             f"{report['step_ms']:.3f} ms a step after the first (host "
             f"clock, the loader included), losses {report['losses']}, "
             f"params equal to rank 0's: {report['params_equal']}")
-        # one float32 step at small_cfg on the card, against the plain
-        # unsharded step on the CPU
-        scfg = small_cfg()
-
-        def small_step(where, mesh, part):
-            T = lambda x: torch.as_tensor(x, device=where)
-            st = create_train_state(scfg, to_device(inp["sparams"], where),
-                                    seed=0)
-            st, met = make_train_step(scfg, 190, mesh=mesh)(
-                st, *(T(x)[part] for x in inp["sbatch"]),
-                noise={k: T(v) for k, v in inp["snoise"].items()})
-            return tree_leaves(st.params), met
-        card = small_step(dev, m, m.rows(scfg.batch_size))
-        if rank == 0:
-            check_step_rule(card, small_step("cpu", None, slice(None)),
-                            scfg.learning_rate,
-                            "float32 (2, 1) step on the card vs the plain "
-                            "unsharded step on the CPU")
+        check_meshed_step(m, small_cfg(), inp["snoise"], inp, dev,
+                          "float32 (2, 1) step on the card vs the plain "
+                          "unsharded step on the CPU")
+    # (c) lane-parallel training
+    inp["tmp"] = tmp
+    report["lane"], lane_launches, report["launches_freeze"] = lane_rank(
+        rank, meshes, inp, dev, say)
+    count(lane_launches)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     mesh_mod.barrier(meshes[(2, 2)])
@@ -2205,9 +2493,10 @@ def mesh_phase(dev, smi, rng):
     (``chip_smoke.py --mesh-rank``, gloo on cuda:0) run ``mesh_rank``; this
     process computes the unsharded references on the same inputs (the bf16
     serving forward of phases 4-5, MESH_STEPS steps of phase 6's training
-    from the same state), compares, and shows that a one-rank NCCL group
-    initialises and all-reduces. Returns the ranks' launches (the meshed
-    forwards and training steps)."""
+    from the same state, one step of each LANE_VARIANTS config), compares,
+    and shows that a one-rank NCCL group initialises and all-reduces.
+    Returns the ranks' launches (the meshed forwards and training steps;
+    those of the social_freeze steps apart)."""
     import tempfile
     import torch.distributed as dist
     from desire_tpu_torch.models.desire import (desire_forward,
@@ -2231,7 +2520,9 @@ def mesh_phase(dev, smi, rng):
                     eps=eps, batches=loader.batches,
                     sparams=make_params(scfg, "cpu", seed=11),
                     sbatch=synthetic_batch(scfg, rng),
-                    snoise=train_noise(scfg, rng, "cpu")),
+                    snoise=train_noise(scfg, rng, "cpu"),
+                    snoise4=train_noise(small_cfg(num_samples=4), rng,
+                                        "cpu")),
                os.path.join(tmp, "inputs.pt"))
     p_dev = to_device(params, dev)
     ref = desire_forward(p_dev, cfg, *(x.to(dev) for x in batch),
@@ -2239,6 +2530,11 @@ def mesh_phase(dev, smi, rng):
                          kernel_weights=pack_kernel_weights(p_dev, cfg, dev))
     ref = {k: ref[k].cpu() for k in ("raw5", "refined_traj", "scores")}
     logged, _, _ = epoch_run(cfg, p_dev, loader, "unsharded reference")
+    one = SyntheticLoader(cfg, None, 0)
+    one.batches = loader.batches[:1]
+    variant_ref = {label: epoch_run(flagship_cfg(**kw), p_dev, one,
+                                    f"unsharded reference, {label}")[0]
+                   for label, (_, kw) in LANE_VARIANTS.items()}
     del p_dev
 
     port = free_port()
@@ -2306,7 +2602,43 @@ def mesh_phase(dev, smi, rng):
     if written != [True, False] or on_disk != [True, False]:
         raise AssertionError("phase 10: rank 0 alone must write checkpoints")
 
-    # (c) the backend of ranks with a card each: a one-rank NCCL group
+    # (c) lane-parallel training against the unsharded steps
+    for label, ranks, ref_logged in (
+            [(f"{a}x{b}", range(a * b), logged) for a, b in LANE_SHAPES]
+            + [(label, range(shape[0] * shape[1]), variant_ref[label])
+               for label, (shape, _) in LANE_VARIANTS.items()]):
+        for key, ref_key, tol in (("losses", "loss", LANE_LOSS_TOL),
+                                  ("grad_norms", "grad_norm",
+                                   LANE_NORM_TOL)):
+            want = [m[ref_key] for m in ref_logged]
+            for r in ranks:
+                got = reports[r]["lane"][label][key]
+                rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+                print(f"  lane-parallel {label} rank {r} {key} {got} vs "
+                      f"unsharded {want}: max rel {max(rel):.2e} (<= {tol})",
+                      flush=True)
+                if len(rel) != len(want) or max(rel) > tol:
+                    raise AssertionError(f"phase 10: lane-parallel {label} "
+                                         f"{key} disagree with the "
+                                         "unsharded steps")
+        if not all(reports[r]["lane"][label]["params_equal"] for r in ranks):
+            raise AssertionError(f"phase 10: the lane-parallel {label} "
+                                 "ranks' params differ")
+        if label in LANE_VARIANTS:
+            continue
+        written = [reports[r]["lane"][label]["checkpoint_written"]
+                   for r in ranks]
+        on_disk = [bool(os.listdir(os.path.join(
+            tmp, f"ckpt_{label}_rank{r}"))) for r in ranks]
+        ms = [round(reports[r]["lane"][label]["step_ms"], 3) for r in ranks]
+        print(f"  lane-parallel {label}: checkpoint save() wrote {written}, "
+              f"on disk {on_disk}; step ms after the first, per rank {ms} "
+              f"({smi}; the ranks share the card)", flush=True)
+        if written != [r == 0 for r in ranks] or on_disk != written:
+            raise AssertionError("phase 10: rank 0 alone must write "
+                                 "checkpoints")
+
+    # (d) the backend of ranks with a card each: a one-rank NCCL group
     mesh_mod.init_multihost(f"localhost:{free_port()}", 1, 0, "cuda", 60.0)
     try:
         x = torch.full((4,), 3.0, device=dev)
@@ -2320,18 +2652,25 @@ def mesh_phase(dev, smi, rng):
     if not ok:
         raise AssertionError("phase 10: the NCCL group failed")
 
-    launches = {}
+    launches, launches_fz = {}, {}
     for rp in reports:
-        for k, n in rp["launches"].items():
-            launches[k] = launches.get(k, 0) + n
+        for into, got in ((launches, rp["launches"]),
+                          (launches_fz, rp["launches_freeze"])):
+            for k, n in got.items():
+                into[k] = into.get(k, 0) + n
     check_launches("phase 10", launches, ("sgm_sample", "ioc_refine",
                                           "ioc_refine_train",
                                           "ioc_refine_bwd", "nll_fwd",
-                                          "nll_bwd"), 1)
-    print(f"  phase 10 launches {launches}", flush=True)
+                                          "nll_bwd", "scene_pool_fwd",
+                                          "scene_pool_bwd"), 1)
+    check_launches("phase 10, social_freeze", launches_fz,
+                   ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
+                    "nll_bwd"), 1)
+    print(f"  phase 10 launches {launches}; social_freeze {launches_fz}",
+          flush=True)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s ({smi})",
           flush=True)
-    return launches
+    return launches, launches_fz
 
 
 def check_forward_card_vs_cpu(scfg, sp, rng):
@@ -2402,6 +2741,177 @@ def serve_requests(params, cfg, rng, n_req=3, n_win=64):
     launches = dict(ops.LAUNCHES)
     print(f"  {n_req} requests x {n_win} windows; launches {launches}; "
           f"stats {pred.stats()}", flush=True)
+    return launches
+
+
+# -- 11. the deconv mask decoder and the reference facade ----------------------
+# the deconv stack's layers: (param name, input side, stride, padding)
+DECONV_LAYERS = (("vdec1", 1, 1, "VALID"), ("vdec2", 4, 1, "VALID"),
+                 ("vdec3", 8, 2, "SAME"), ("vdec4", 16, 2, "SAME"))
+
+
+def reference_args(**kw):
+    """The reference's flags (``desire_tpu/compat.py``'s contract) at the
+    flagship widths: 60 agent slots, d 48, latent 128, embedding 64,
+    windows of seq_length 8."""
+    import argparse
+    ns = argparse.Namespace(
+        rnn_size=512, num_layers=1, model="gru", batch_size=1, seq_length=8,
+        num_epochs=1, save_every=400, grad_clip=10.0, learning_rate=1e-3,
+        decay_rate=0.95, keep_prob=0.8, embedding_size=64,
+        neighborhood_size=32, grid_size=4, max_num_obj=60, leave_dataset=5,
+        latent_size=128, e_dim=256, d_dim=48, stride=1)
+    for k, v in kw.items():
+        setattr(ns, k, v)
+    return ns
+
+
+def reference_traj(rng, t, a):
+    """(t, a, 3) in the reference's layout, column 0 the id (0: an empty
+    slot), in raw pixels: straight walks, a tenth of the slots empty."""
+    out = np.zeros((t, a, 3), np.float32)
+    for i in range(a):
+        if rng.random() < 0.1:
+            continue
+        p0, v = rng.uniform(100.0, 900.0, 2), rng.uniform(-8.0, 8.0, 2)
+        out[:, i, 0] = i + 1
+        out[:, i, 1:3] = p0 + np.arange(t)[:, None] * v
+    return out
+
+
+def conv_phase(dev, smi, rng):
+    """Phase 11: a model with the deconv mask decoder (vae_dec='conv') at
+    the flagship width, and the reference facade on the card. Returns the
+    launches of its main paths (the conv model's requests and steps, the
+    facade's steps and sample)."""
+    from desire_tpu_torch import compat, ops
+    from desire_tpu_torch.models import layers as L
+    from desire_tpu_torch.models import sgm
+    from desire_tpu_torch.params import to_device
+
+    print(f"phase 11: vae_dec='conv' and the reference facade ({smi})",
+          flush=True)
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    # -- 11a. deconv2d and the decoder: card vs CPU, float32 -------------------
+    cfg32 = flagship_cfg(vae_dec="conv", compute_dtype="float32")
+    p = make_params(cfg32, "cpu", seed=20)["sgm"]
+    gen = torch.Generator().manual_seed(20)
+    for name, side, stride, pad in DECONV_LAYERS:
+        x = torch.randn((256, side, side, p[name]["w"].shape[2]),
+                        generator=gen)
+        ref = L.deconv2d(p[name], x, stride=stride, padding=pad)
+        got = L.deconv2d(to_device(p[name], dev), x.to(dev), stride=stride,
+                         padding=pad)
+        check_close(f"deconv2d {name} {tuple(x.shape)} -> "
+                    f"{tuple(got.shape)}", got.cpu(), ref, **F32_TOL)
+    z = torch.randn((256, cfg32.latent_size), generator=gen)
+    ref = sgm.vae_decode_mask(p, z, cfg32.vae_side)
+    got = sgm.vae_decode_mask(to_device(p, dev), z.to(dev), cfg32.vae_side)
+    for name, g, r in zip(("beta", "recon"), got, ref):
+        check_close(f"conv vae_decode_mask {name}", g.cpu(), r, **F32_TOL)
+
+    # -- 11b. the float32 forward: card vs CPU ---------------------------------
+    print("compare float32 conv forward, card (kernels) vs CPU (plain):",
+          flush=True)
+    scfg = small_cfg(rnn_size=512, vae_dec="conv")
+    got = check_forward_card_vs_cpu(scfg, make_params(scfg, dev, seed=21),
+                                    rng)
+    # the fused sampler needs the MLP decoder: the sampler is layer by layer
+    check_launches("the conv forward", got, ("ioc_refine",), 1)
+    check_not_launched("the conv forward", got, ("sgm_sample",))
+
+    # -- 11c. serve ---------------------------------------------------------------
+    print("serve: a conv model, Predictor at B=64, A=60, K=20, bf16",
+          flush=True)
+    cfg = flagship_cfg(vae_dec="conv")
+    params = make_params(cfg, dev, seed=22)
+    with recorded_serving_calls() as calls:
+        got = serve_requests(params, cfg, rng)
+    # the conv model's IOC inputs: the noise-aware bound, as phase 10's
+    # training calls (check_bf16_noise)
+    print(f"  every IOC call held against plain [calls, max abs error, the "
+          f"plain bf16 version's against float32]: "
+          f"{check_recorded_calls(calls, verbose=False, against_f32=True)}",
+          flush=True)
+    del calls
+    check_launches("3 conv requests", got, ("ioc_refine",), 3)
+    check_not_launched("3 conv requests", got, ("sgm_sample",))
+    add(got)
+
+    # -- 11d. train, remat off and on -------------------------------------------
+    print("training: a conv model, 2 run_epoch steps at B=64, A=60, K=20, "
+          "bf16, remat off and on", flush=True)
+    loader = SyntheticLoader(cfg, rng, 2)
+    runs = {}
+    for remat in (False, True):
+        logged, got, peak = epoch_run(flagship_cfg(vae_dec="conv",
+                                                   remat=remat),
+                                      params, loader, f"remat={remat}")
+        check_launches(f"conv, remat={remat}", got,
+                       ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
+                        "nll_bwd"), 2)
+        add(got)
+        runs[remat] = ([m["loss"] for m in logged], peak,
+                       warm_step_ms(logged))
+    diff = max(abs(x - y) / max(abs(x), 1e-6)
+               for x, y in zip(runs[False][0], runs[True][0]))
+    print(f"  remat: losses off {runs[False][0]} on {runs[True][0]}, max "
+          f"relative difference {diff:.3e} (<= 1e-3); peak device memory off"
+          f" {runs[False][1] / 2**30:.3f} GiB, on {runs[True][1] / 2**30:.3f}"
+          f" GiB; the second step {runs[False][2]:.3f} / "
+          f"{runs[True][2]:.3f} ms (host clock, logging waits for the "
+          f"card; {smi})", flush=True)
+    if diff > 1e-3:
+        raise AssertionError("remat changed the conv model's losses")
+    del params, loader
+
+    # -- 11e. the reference facade ------------------------------------------------
+    print("the reference facade: DESIREModel on the card, 3 train_steps and "
+          "a sample of 12 frames", flush=True)
+    model = compat.DESIREModel(reference_args(), seed=0, device="cuda")
+    t = model.cfg.seq_length
+    full = reference_traj(rng, t + 1, model.cfg.max_num_obj)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [model.train_step(full[:-1], full[1:]) for _ in range(3)]
+    train_ms = (time.perf_counter() - t0) * 1e3 / 3
+    got = dict(ops.LAUNCHES)
+    check_launches("DESIREModel.train_step", got,
+                   ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
+                    "nll_bwd"), 3)
+    add(got)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"DESIREModel losses {losses}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_serving_calls() as calls:
+        out = model.sample(None, full[:-1], dimensions=(1000, 1000), num=12)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    got = dict(ops.LAUNCHES)
+    checked = check_recorded_calls(calls, verbose=False, against_f32=True)
+    del calls
+    check_launches("DESIREModel.sample", got, ("sgm_sample", "ioc_refine"),
+                   1)
+    add(got)
+    want = (t + 12, model.cfg.max_num_obj, 3)
+    if out.shape != want or not np.isfinite(out).all():
+        raise AssertionError(f"DESIREModel.sample gave {out.shape} (want "
+                             f"{want}) or non-finite values")
+    np.testing.assert_array_equal(out[:t], full[:-1])
+    print(f"  losses {losses}; a train_step {train_ms:.1f} ms, the sample "
+          f"{sample_ms:.1f} ms (host clock, the first calls included); "
+          f"sample {out.shape}, its kernel calls held against plain "
+          f"{checked}", flush=True)
+    print(f"  phase 11 launches {launches}", flush=True)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
     return launches
 
 
@@ -2567,13 +3077,21 @@ def main():
     forecast_launches = entry_point_phase(dev, smi, rng)
 
     # -- 10. the mesh on one card -------------------------------------------------
-    mesh_launches = mesh_phase(dev, smi, rng)
-    for row in kernels:
-        # the social_freeze variant is not on phase 9's or 10's path
-        for extra in (forecast_launches, mesh_launches):
-            row["launches"] += extra.get(row["name"], 0)
+    mesh_launches, mesh_launches_fz = mesh_phase(dev, smi, rng)
 
-    # -- 11. results ------------------------------------------------------------
+    # -- 11. the deconv mask decoder, the reference facade -------------------------
+    conv_launches = conv_phase(dev, smi, rng)
+    for row in kernels:
+        # the social_freeze backward's row counts the social_freeze steps'
+        name = row["name"]
+        for extra in (forecast_launches, mesh_launches, conv_launches):
+            row["launches"] += extra.get(name, 0)
+        if name == "ioc_refine_bwd_social_freeze":
+            row["launches"] += mesh_launches_fz["ioc_refine_bwd"]
+        elif name != "ioc_refine_bwd":
+            row["launches"] += mesh_launches_fz.get(name, 0)
+
+    # -- 12. results ------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -189,6 +189,9 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
     live = losses.agent_validity_mask(ids)
     n = b * a
     packed = kernel_weights or {}
+    # training under a mesh: the sampler runs all K lanes of the rank's
+    # rows and the IOC its lanes of them, gathered to all K (desire_loss)
+    lanes = train and mesh is not None and mesh.shape[1] > 1
     out = sgm_mod.sgm_forward(
         params["sgm"], cfg, obs_xy.reshape(n, *obs_xy.shape[2:]),
         obs_mask.reshape(n, -1),
@@ -197,9 +200,10 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
         eps=eps, generator=generator, k_samples=K, train=train,
         keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"),
         z_temp=(None if z_temp is None
-                else z_temp.reshape(n, 1, 1).float()), mesh=mesh)
+                else z_temp.reshape(n, 1, 1).float()),
+        mesh=None if train else mesh)
 
-    K = out["traj_mu"].shape[1]     # the rank's lanes under a mesh
+    K = out["traj_mu"].shape[1]     # the rank's lanes under a meshed forward
     tf_len = fut_xy.shape[2]
     traj = out["traj_mu"].reshape(b, a, K, tf_len, 2)
     dec_h = out["dec_h"].reshape(b, a, K, tf_len, -1)
@@ -251,10 +255,21 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
             fut_mask.contiguous(), weights=packed.get("ioc"), **kw)
         per_iter = []
     elif train and uses_fused_train_ioc(cfg):
-        refined, scores, iters = ops.ioc_refine_train(
+        refine = (functools.partial(ops.ioc_refine_train_sharded, mesh)
+                  if lanes else ops.ioc_refine_train)
+        refined, scores, iters = refine(
             params["ioc"], params["scf"], traj, dec_h, feat_map, live,
             fut_mask, **kw)
         per_iter = list(iters.unbind(0))
+    elif lanes:
+        # layer by layer on the rank's lanes: every lane is independent
+        # (the social pool attends within a lane)
+        ln = mesh.lanes(K)
+        refined, scores, per_iter = ioc_mod.ioc_forward(
+            params["ioc"], params["scf"], cfg, traj[:, :, ln],
+            dec_h[:, :, ln], feat_map, live, fut_mask)
+        refined, scores, *per_iter = mesh_mod.gather_lanes(
+            mesh, [(x, 2) for x in [refined, scores, *per_iter]])
     else:
         refined, scores, per_iter = ioc_mod.ioc_forward(
             params["ioc"], params["scf"], cfg, traj, dec_h, feat_map, live,
@@ -273,20 +288,26 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     "lane_u" (B, A, K) uniforms of the variety subset, "keep_x" and
     "keep_y" dropout keep-masks; each missing one is drawn from generator.
     scene_image: the batch's imagery raster (``desire_forward``).
-    mesh: a data-parallel ``parallel.mesh.Mesh`` (mesh_k 1). The batch and
-    noise are then the rank's rows (every draw given, cut from the global
-    draws: ``train.trainer.step_noise``), and every masked mean divides
-    the rank's total by the mask's sum over the global batch, so that the
-    ranks' losses and metrics add up to the global ones; the speed
-    weights' statistics are global too.
+    mesh: a ``parallel.mesh.Mesh``. The batch and noise are then the
+    rank's rows (block d; every draw given, cut from the global draws by
+    rows only: ``train.trainer.step_noise``), and every masked mean
+    divides the rank's total by the mask's sum over the global batch, so
+    that the losses and metrics of the ``data`` ranks add up to the global
+    ones; the speed weights' statistics are global too. With mesh_k > 1
+    the sampler, the scene CNN and every loss term run on all K lanes of
+    the rank's rows, and the IOC on its block of the lanes, gathered to
+    all K (``ops.ioc_refine_train_sharded``; layer by layer,
+    ``parallel.mesh.gather_lanes``): every ``k`` rank of a row computes
+    the same loss, and the IOC's share of its gradients is mk times its
+    lanes' (``train.trainer`` sums over the mesh and divides by mk). Where
+    K does not split over ``k``, every rank runs all the lanes.
     Returns (total, metrics), metrics with the JAX package's keys."""
     K = k_samples or cfg.num_samples
     b, _, a, _ = xy.shape
     dev = xy.device
     nz = noise or {}
-    if mesh is not None and mesh.shape[1] > 1:
-        raise NotImplementedError(
-            "lane-parallel training (mesh_k > 1) is not ported yet")
+    lane_mesh = (mesh if mesh is not None and mesh.shape[1] > 1
+                 and K % mesh.shape[1] == 0 else None)
     if mesh is not None and (
             {"lane_u", "eps"} - set(nz)
             or (cfg.keep_prob < 1.0 and {"keep_x", "keep_y"} - set(nz))):
@@ -307,10 +328,12 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     elif tuple(lane_u.shape) != (b, a, K):
         raise ValueError(f"lane_u must be {(b, a, K)}, got "
                          f"{tuple(lane_u.shape)}")
-    out = desire_forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
-                         generator=generator, k_samples=K, train=True,
-                         keep_x=nz.get("keep_x"), keep_y=nz.get("keep_y"),
-                         scene_image=scene_image)
+    with torch.inference_mode(False):
+        out = _forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
+                       generator=generator, k_samples=K, train=True,
+                       kernel_weights=None, keep_x=nz.get("keep_x"),
+                       keep_y=nz.get("keep_y"), z_temp=None,
+                       scene_image=scene_image, mesh=lane_mesh)
     fut_xy, fut_mask, live = out["fut_xy"], out["fut_mask"], out["live"]
     f32 = torch.float32
     # an agent must have at least one valid future step

@@ -4,7 +4,8 @@
 The tree layouts are the JAX package's: dense weights are (in, out), GRU
 weights are (in, 3H) with gates in [r | z | n] order, conv weights are HWIO.
 Activations are (..., features); convolutions take NHWC and permute to
-PyTorch's NCHW/OIHW only around the ``F.conv2d`` call.
+PyTorch's NCHW/OIHW only around the ``F.conv2d`` and
+``F.conv_transpose2d`` calls.
 """
 
 from __future__ import annotations
@@ -141,6 +142,43 @@ def conv2d(p: Params, x: torch.Tensor, stride=1, padding="SAME"):
     elif padding != "VALID":
         raise ValueError(f"padding must be 'SAME' or 'VALID': {padding!r}")
     y = F.conv2d(xc, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
+
+
+def _conv_transpose_pads(k, stride, padding):
+    """``jax.lax.conv_transpose``'s padding of one spatial axis of the
+    stride-dilated input, (low, high), for the forward conv's "SAME" or
+    "VALID" (``jax.lax``'s ``_conv_transpose_padding``). At SAME the odd
+    pad goes low: k = 5, s = 2 pads (3, 2)."""
+    if padding == "SAME":
+        total = k + stride - 2
+        low = k - 1 if stride > k - 1 else -(-total // 2)
+    elif padding == "VALID":
+        total = k + stride - 2 + max(k - stride, 0)
+        low = k - 1
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID': {padding!r}")
+    return low, total - low
+
+
+def deconv2d(p: Params, x: torch.Tensor, stride=1, padding="SAME"):
+    """Transposed convolution as ``jax.lax.conv_transpose`` computes it
+    with its default ``transpose_kernel=False``: the stride-dilated input,
+    padded per :func:`_conv_transpose_pads`, correlated with the HWIO
+    kernel unflipped. x: (N, H, W, Cin), w: (kh, kw, Cin, Cout).
+
+    ``F.conv_transpose2d`` correlates the dilated input with the kernel
+    flipped, padded k - 1 on both sides (padding 0): it is given the
+    flipped kernel, and its output is cropped to the low and high pads."""
+    w = p["w"]
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    ph = _conv_transpose_pads(kh, stride, padding)
+    pw = _conv_transpose_pads(kw, stride, padding)
+    wt = w.to(x.dtype).permute(2, 3, 0, 1).flip(2, 3)    # (Cin, Cout, kh, kw)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=stride)
+    # the full output pads k - 1 a side; keep (low, high) of them
+    y = F.pad(y, (pw[0] - (kw - 1), pw[1] - (kw - 1),
+                  ph[0] - (kh - 1), ph[1] - (kh - 1)))
     return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
 
 

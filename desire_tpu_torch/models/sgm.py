@@ -162,13 +162,24 @@ def vae_encode(p, hx, hy, side):
 
 
 def vae_decode_mask(p, z, side):
-    """Latent -> MLP 'reconstruction' -> softmax mask beta (M, d), rescaled
-    to mean 1. Only the MLP decoder is ported."""
+    """Latent z (M, latent) -> 'reconstruction' (M, side * side) ->
+    softmax mask beta (M, d), rescaled to mean 1. The reconstruction is the
+    deconv stack where the model has one (vae_dec='conv', side 32: 1 x 1
+    -> 4 x 4 x 128 -> 8 x 8 x 64 -> 16 x 16 x 32 -> 32 x 32 x 1, group
+    norm and ELU between, a sigmoid last), else an MLP."""
     if "vdec1" in p:
-        raise NotImplementedError("the deconv mask decoder (vae_dec='conv') "
-                                  "is not ported")
-    h = F.elu(L.dense(p["vdec_fc1"], z))
-    recon = torch.sigmoid(L.dense(p["vdec_fc"], h))
+        h = z[:, None, None, :]
+        h = F.elu(L.groupnorm(p["vdgn1"], L.deconv2d(p["vdec1"], h,
+                                                     padding="VALID")))
+        h = F.elu(L.groupnorm(p["vdgn2"], L.deconv2d(p["vdec2"], h,
+                                                     padding="VALID")))
+        h = F.elu(L.groupnorm(p["vdgn3"], L.deconv2d(p["vdec3"], h,
+                                                     stride=2)))
+        h = torch.sigmoid(L.deconv2d(p["vdec4"], h, stride=2))
+        recon = h.reshape(h.shape[0], -1)
+    else:
+        h = F.elu(L.dense(p["vdec_fc1"], z))
+        recon = torch.sigmoid(L.dense(p["vdec_fc"], h))
     d = p["post_vae"]["w"].shape[-1]
     logits = L.dense(p["post_vae"], recon) + L.dense(p["z_gate"], z)
     beta = torch.softmax(logits, dim=-1) * d

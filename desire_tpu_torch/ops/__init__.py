@@ -9,11 +9,14 @@ raises. The training ops (``ioc_refine_train``, ``bivariate_nll_sum``) and
 the scene pooling of the layer-by-layer IOC (``bilinear_pool``) are
 ``torch.autograd.Function``s whose backward is a kernel too. Under a
 ``(data, k)`` mesh the serving kernels launch per rank on its block
-(``sgm_sample_decode_sharded``, ``ioc_refine_sharded``).
+(``sgm_sample_decode_sharded``, ``ioc_refine_sharded``), and so do the
+IOC training kernels, their outputs gathered to every lane
+(``ioc_refine_train_sharded``).
 """
 
 from desire_tpu_torch.ops._build import LAUNCHES, reset_launch_counts
-from desire_tpu_torch.ops.ioc_bwd import ioc_refine_train
+from desire_tpu_torch.ops.ioc_bwd import (ioc_refine_train,
+                                          ioc_refine_train_sharded)
 from desire_tpu_torch.ops.ioc_fused import (ioc_refine, ioc_refine_sharded,
                                             pack_ioc)
 from desire_tpu_torch.ops.nll import bivariate_nll_sum
@@ -23,5 +26,5 @@ from desire_tpu_torch.ops.sgm_fused import (pack_sampler, sgm_sample_decode,
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "bilinear_pool",
            "bivariate_nll_sum", "ioc_refine", "ioc_refine_sharded",
-           "ioc_refine_train", "pack_ioc", "pack_sampler", "sgm_sample_decode",
-           "sgm_sample_decode_sharded"]
+           "ioc_refine_train", "ioc_refine_train_sharded", "pack_ioc",
+           "pack_sampler", "sgm_sample_decode", "sgm_sample_decode_sharded"]

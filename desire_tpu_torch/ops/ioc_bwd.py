@@ -16,6 +16,9 @@ Under social_freeze the social block is pooled once, at the initial
 positions, and reused by every pass; the backward kernel then runs one
 deferred attention adjoint after its passes (the TPU kernel's variant).
 
+Under a ``(data, k)`` mesh, ``ioc_refine_train_sharded`` runs the pair
+on a rank's lane block and gathers the outputs to every lane.
+
 On CPU tensors the plain version runs instead: autograd through
 ``ioc_fused.ioc_refine_plain(collect_iters=True)``, which carries the same
 stop-gradients as ``models/ioc.ioc_forward``.
@@ -28,8 +31,9 @@ import ctypes
 import torch
 
 from desire_tpu_torch.ops import _build
-from desire_tpu_torch.ops.ioc_fused import (ioc_refine_cuda,
+from desire_tpu_torch.ops.ioc_fused import (check_rows, ioc_refine_cuda,
                                             ioc_refine_plain, pack_ioc)
+from desire_tpu_torch.parallel import mesh as mesh_mod
 
 _F32 = torch.float32
 
@@ -264,3 +268,33 @@ def ioc_refine_train(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
             social_freeze=social_freeze, collect_iters=True)
         return refined, scores.to(dec_h.dtype), iters
     raise ValueError(f"no IOC kernel for device {traj.device}")
+
+
+def ioc_refine_train_sharded(mesh, p_ioc, p_scf, traj, dec_h, feat_map,
+                             live, fut_mask, *, num_refine, delta_scale,
+                             social_freeze=False):
+    """The trainable rank-and-refine on rank ``(d, k)`` of a ``(data, k)``
+    mesh (port of ``make_trainable_fused_ioc_sharded``): the training
+    forward and backward kernels (:func:`ioc_refine_train`) on the rank's
+    (B/md, A, K/mk) block, its outputs gathered to the K lanes of its rows
+    (``parallel.mesh.gather_lanes``).
+
+    traj (B/md, A, K, T, 2) and dec_h hold every lane of the rank's rows
+    (the training sampler runs all of them); feat_map, live and fut_mask
+    hold the same rows. Returns (refined, scores, iters) of the rows, with
+    all K lanes, on every rank of the ``k`` group. Every (row, lane) is
+    independent, so the forward needs no other collective. The gradients
+    that reach traj, dec_h, feat_map and the parameters are mk times the
+    rank's lanes' share (the gather's backward); the training step's one
+    all-reduce over the mesh, divided by mk, sums them, where the JAX
+    package sums the parameter gradients over both axes and d_feat_map
+    over ``k`` inside its backward."""
+    check_rows(traj, feat_map=feat_map, live=live, fut_mask=fut_mask,
+               dec_h=dec_h)
+    ln = mesh.lanes(traj.shape[2])
+    refined, scores, iters = ioc_refine_train(
+        p_ioc, p_scf, traj[:, :, ln], dec_h[:, :, ln], feat_map, live,
+        fut_mask, num_refine=num_refine, delta_scale=delta_scale,
+        social_freeze=social_freeze)
+    return tuple(mesh_mod.gather_lanes(mesh, [(refined, 2), (scores, 2),
+                                              (iters, 3)]))

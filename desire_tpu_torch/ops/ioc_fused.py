@@ -279,6 +279,16 @@ def ioc_refine(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
     raise ValueError(f"no IOC kernel for device {traj.device}")
 
 
+def check_rows(traj, **others):
+    """Raise unless every tensor of ``others`` holds traj's rows (a
+    rank's block under a mesh)."""
+    b = traj.shape[0]
+    for name, x in others.items():
+        if x.shape[0] != b:
+            raise ValueError(f"{name} holds {x.shape[0]} rows, traj {b}: "
+                             "pass the rank's rows of each")
+
+
 def ioc_refine_sharded(mesh, p_ioc, p_scf, traj, dec_h, feat_map, live,
                        fut_mask, *, num_refine, delta_scale,
                        social_freeze=False, weights=None):
@@ -292,12 +302,8 @@ def ioc_refine_sharded(mesh, p_ioc, p_scf, traj, dec_h, feat_map, live,
     pools a lane's own agents), so there are no collectives. The kernel
     projects the social messages itself: the JAX wrapper's explicit
     ``msg`` is the same product. Returns (refined, scores) of the block."""
-    b = traj.shape[0]
-    for name, x in (("feat_map", feat_map), ("live", live),
-                    ("fut_mask", fut_mask), ("dec_h", dec_h)):
-        if x.shape[0] != b:
-            raise ValueError(f"{name} holds {x.shape[0]} rows, traj {b}: "
-                             "pass the rank's rows of each")
+    check_rows(traj, feat_map=feat_map, live=live, fut_mask=fut_mask,
+               dec_h=dec_h)
     return ioc_refine(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask,
                       num_refine=num_refine, delta_scale=delta_scale,
                       social_freeze=social_freeze, weights=weights)

@@ -31,6 +31,8 @@ three that gloo runs on CUDA tensors, and what NCCL runs where every rank
 has a card of its own (NCCL refuses two ranks on one card). A gather is
 the sum of a zero-filled global tensor into which each rank wrote its
 block (:func:`assemble`), exact since every element has one writer.
+Lane-parallel training gathers the IOC's lane blocks differentiably
+(:func:`gather_lanes`).
 """
 
 from __future__ import annotations
@@ -202,6 +204,68 @@ def assemble(mesh: Mesh, blocks, lane_dim: int | None = None) -> list:
     dist.all_reduce(flat, group=mesh.groups[axis])
     return [seg.view(shape).to(block.dtype)
             for seg, (block, shape) in zip(flat.split(sizes), blocks)]
+
+
+class _LaneGather(torch.autograd.Function):
+    """Forward: the rank's lane blocks gathered to their K lanes over the
+    ``k`` group, in one all-reduce of a zero-filled float32 buffer.
+    Backward: mk times the rank's own lanes of each upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, *blocks):
+        mk = mesh.shape[1]
+        ctx.mesh, ctx.dims = mesh, dims
+        ctx.widths = [x.shape[d] for x, d in zip(blocks, dims)]
+        shapes = []
+        for x, d in zip(blocks, dims):
+            s = list(x.shape)
+            s[d] *= mk
+            shapes.append(s)
+        sizes = [math.prod(s) for s in shapes]
+        flat = torch.zeros(sum(sizes), dtype=torch.float32,
+                           device=blocks[0].device)
+        for seg, x, s, d in zip(flat.split(sizes), blocks, shapes, dims):
+            ln = mesh.lanes(s[d])
+            seg.view(s).narrow(d, ln.start, ln.stop - ln.start).copy_(x)
+        dist.all_reduce(flat, group=mesh.groups[K_AXIS])
+        return tuple(seg.view(s).to(x.dtype, copy=True)
+                     for seg, x, s in zip(flat.split(sizes), blocks, shapes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mk = ctx.mesh.shape[1]
+        out = []
+        for g, d, w in zip(grads, ctx.dims, ctx.widths):
+            start = ctx.mesh.lanes(w * mk).start
+            out.append(g.narrow(d, start, w) * mk)
+        return (None, None, *out)
+
+
+def gather_lanes(mesh: Mesh, blocks) -> list:
+    """Gather lane blocks to their full K lanes on every rank of the
+    rank's ``k`` group, differentiably. blocks: (block, lane dim) pairs,
+    the rank's lanes (``mesh.lanes``) on that dim; the rows are the same
+    on every rank of the group. One all-reduce of a zero-filled float32
+    buffer, exact since every element has one writer (bfloat16 and
+    float32 blocks come back bit for bit).
+
+    The backward gives each block mk times the rank's own lanes of the
+    upstream gradient, with no collective. Every ``k`` rank of a ``data``
+    row computes the same loss from the same gathered tensors and the same
+    replicated rows, so its upstream gradient is the same, and mk times a
+    rank's share summed over the ``k`` group is mk times the reduce-scatter
+    of the gradient: the training step's one all-reduce of the gradients
+    over the mesh, divided by mk (``train.trainer``), then gives every
+    rank the unsharded gradient. Where two ranks' upstream gradients
+    differ in rounding (a kernel whose float sums have no fixed order),
+    the result differs from the unsharded one by that rounding, and every
+    rank still gets the same gradient from that all-reduce, so the params
+    stay equal: the exact reduce-scatter (one more all-reduce in every
+    backward) would buy nothing more."""
+    if mesh.shape[1] == 1:
+        return [b for b, _ in blocks]
+    return list(_LaneGather.apply(mesh, tuple(d for _, d in blocks),
+                                  *(b for b, _ in blocks)))
 
 
 def broadcast(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:

@@ -16,17 +16,21 @@ rolling back to the last good checkpoint.
 ``--device cuda`` (the default) needs a CUDA device and raises without
 one.
 
-Data-parallel training (``--mesh_data N``, ``--mesh_k 1``) runs one
-process per device, each started with the same flags and its rank
-(``parallel/mesh.py``; rank r on ``cuda:{r % device count}``, NCCL where
-every rank has a card, gloo on the CPU or where ranks share one):
+Training on a ``(data, k)`` mesh (``--mesh_data md --mesh_k mk``) runs
+md * mk processes, one per device, each started with the same flags and
+its rank (``parallel/mesh.py``; rank r = d * mk + k on
+``cuda:{r % device count}``, NCCL where every rank has a card, gloo on
+the CPU or where ranks share one):
 
-    python -m desire_tpu_torch.train --mesh_data 2 --num_processes 2 \
-        --coordinator localhost:29500 --process_id 0 ...   # and 1
+    python -m desire_tpu_torch.train --mesh_data 2 --mesh_k 2 \
+        --num_processes 4 --coordinator localhost:29500 \
+        --process_id 0 ...                                # and 1, 2, 3
 
-Every rank trains on its rows of each batch; only rank 0 logs, writes
+Every rank trains on its rows of each batch (block d), and with
+mesh_k > 1 refines its block k of the hypothesis lanes through the IOC
+training kernels (``train/trainer.py``); only rank 0 logs, writes
 checkpoints, evaluates (unsharded, while the others wait) and keeps
-best/. Lane-parallel training (``mesh_k > 1``) is not ported yet.
+best/.
 """
 
 from __future__ import annotations

@@ -6,14 +6,18 @@ gradients (through the training kernels on CUDA tensors), the gradient
 norm before clipping, the optimizer update (``train/state.py``) and
 step + 1. Every random draw comes from the state's generator.
 
-Data-parallel (a ``parallel.mesh.Mesh`` of mesh_data ranks, mesh_k 1):
-every rank holds its rows of each batch (``run_epoch`` has the loader
-assemble only those), draws the step's global noise from its generator
-(the same state on every rank) and keeps its rows of it, computes its
-share of the loss (global normalisers, ``desire_loss``), and sums the
-gradients and metrics over the ranks in one all-reduce; the gradient norm,
-the clip and Adam then run the same on every rank, so the params stay
-equal.
+Under a ``parallel.mesh.Mesh`` of mesh_data x mesh_k ranks: every rank
+holds its rows of each batch, block d of the ``data`` axis (``run_epoch``
+has the loader assemble only those), draws the step's global noise from
+its generator (the same state on every rank) and keeps its rows of it,
+and computes its share of the loss (global normalisers,
+``desire_loss``): the full loss of its rows, its IOC on its block k of
+the lanes (lane-parallel, mesh_k > 1). One all-reduce of one flat buffer
+over the whole mesh then sums the gradients and metrics over ``data`` and
+averages them over ``k``: a ``k`` rank's gradient holds every replicated
+term in full and mk times its lanes' share of the IOC's, so the sum over
+``k`` is mk times the unsharded gradient. The gradient norm, the clip and
+Adam then run the same on every rank, so the params stay equal.
 """
 
 from __future__ import annotations
@@ -70,13 +74,9 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
     > 0; zeros when not given). noise: optional pinned draws of the step
     (``step_noise``'s keys); missing ones come from state.generator.
     metrics are the loss's, plus "grad_norm" of the gradients before
-    clipping. mesh: a data-parallel ``parallel.mesh.Mesh``; xy, mask, ids
+    clipping. mesh: a ``parallel.mesh.Mesh`` of any shape; xy, mask, ids
     and img are then the rank's rows of the global batch, noise the global
     draws, and the metrics the global ones (the module's docstring)."""
-    if mesh is not None and mesh.shape[1] > 1:
-        raise NotImplementedError(
-            "lane-parallel training (mesh_k > 1) is not ported yet; "
-            "data-parallel training (mesh_data > 1, mesh_k 1) is")
     data = mesh if mesh is not None and mesh.size > 1 else None
 
     def step_fn(state: TrainState, xy, mask, ids, img=None, noise=None):
@@ -108,7 +108,7 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
                  for g, x in zip(grads, leaves)]
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         if data is not None:
-            grads, metrics = _sum_over_data(data, grads, metrics)
+            grads, metrics = _reduce_over_mesh(data, grads, metrics)
         metrics["grad_norm"] = global_norm(grads)
         p, mu, nu, count = apply_updates(cfg, steps_per_epoch, state,
                                          tree_unflatten(state.params, grads))
@@ -118,14 +118,17 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
     return step_fn
 
 
-def _sum_over_data(mesh, grads, metrics):
-    """The gradients and metrics summed over the data group, in one
-    all-reduce of one flat buffer."""
+def _reduce_over_mesh(mesh, grads, metrics):
+    """The gradients and metrics summed over ``data`` and averaged over
+    ``k``, in one all-reduce of one flat buffer over the whole mesh."""
     names = list(metrics)
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [metrics[k].reshape(1).to(grads[0].dtype)
                         for k in names])
-    parts = mesh_mod.all_sum(mesh, flat).split(
+    flat = mesh_mod.all_sum(mesh, flat, axis=mesh_mod.MESH)
+    if mesh.shape[1] > 1:
+        flat = flat / mesh.shape[1]
+    parts = flat.split(
         [g.numel() for g in grads] + [1] * len(names))
     return ([p.view_as(g) for p, g in zip(parts, grads)],
             {k: p.reshape(()) for k, p in zip(names, parts[len(grads):])})
@@ -192,8 +195,9 @@ def run_epoch(state: TrainState, loader, epoch: int, step_fn,
     (batches with xy, mask and ids arrays, and a scene raster ``image``
     where the config has imagery), at most max_batches of them.
     The batches go to the params' device (``batch_to_device``). mesh: a
-    data-parallel ``parallel.mesh.Mesh`` (step_fn made with it): the
-    loader assembles only this rank's rows of each batch. Returns
+    ``parallel.mesh.Mesh`` (step_fn made with it): the loader assembles
+    only this rank's rows of each batch (block d; the ``k`` ranks of a
+    row hold the same rows). Returns
     (state, mean loss)."""
     device = tree_leaves(state.params)[0].device
     losses_acc, t0 = [], time.time()

@@ -781,5 +781,110 @@ def test_sharded_kernels_two_ranks_on_one_card(cuda_device, tmp_path):
                                        err_msg=f"{shape} {name}", **tol)
 
 
+def _ioc_test_flat(mesh, p, inp, device):
+    """tests/test_kernels.py:388's loss of the trainable IOC on ``inp``
+    (float32): its value and its gradients (the IOC and message leaves,
+    traj, dec_h, feat_map) as one array. mesh None: ``ioc_refine_train``
+    on every lane; a mesh: ``ioc_refine_train_sharded`` on this rank's,
+    the value and gradients summed over the mesh and divided by mk, as
+    the training step reduces them."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.parallel import mesh as mesh_mod
+    from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
+    trees = {"ioc": p["ioc"], "scf": {"soc_msg": p["scf"]["soc_msg"],
+                                      "soc_logtau": p["scf"]["soc_logtau"]}}
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in tree_leaves(trees)]
+    trees = tree_unflatten(trees, leaves)
+    data = [x.to(device).requires_grad_(True) for x in inp["ioc"][:3]]
+    args = (trees["ioc"], trees["scf"], *data,
+            *(x.to(device) for x in inp["ioc"][3:]))
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE)
+    if mesh is None:
+        refined, scores, iters = ops.ioc_refine_train(*args, **kw)
+    else:
+        refined, scores, iters = ops.ioc_refine_train_sharded(mesh, *args,
+                                                              **kw)
+    value = ((refined ** 2).sum() + (scores * inp["wts"].to(device)).sum()
+             + (iters ** 2).sum())
+    grads = torch.autograd.grad(value, leaves + data)
+    flat = torch.cat([value.detach().reshape(1)]
+                     + [g.reshape(-1) for g in grads])
+    if mesh is not None:
+        flat = mesh_mod.all_sum(mesh, flat, axis=mesh_mod.MESH) / \
+            mesh.shape[1]
+    return flat.cpu()
+
+
+def _lane_rank(rank, port, workdir):
+    """A rank of test_lane_training_two_ranks_on_one_card: the trainable
+    IOC on its half of the lanes of a (1, 2) mesh on cuda:0 (gloo)."""
+    from desire_tpu_torch.parallel import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_mod.init_multihost(f"localhost:{port}", 2, rank, "cuda", 120.0)
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    m = mesh_mod.make_mesh(1, 2, device="cuda", timeout_s=120.0)
+    flat = _ioc_test_flat(m, _params(_cfg(), m.device), inp, m.device)
+    if rank == 0:
+        torch.save(flat, os.path.join(workdir, "out.pt"))
+    mesh_mod.barrier(m)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_lane_training_two_ranks_on_one_card(cuda_device, tmp_path):
+    """ioc_refine_train_sharded, two ranks on one card joined by gloo on a
+    (1, 2) mesh, each launching the IOC training forward and backward
+    kernels on 2 of the 4 lanes: the value and every gradient, reduced as
+    the training step reduces them, against the unsharded kernel pair on
+    the same inputs (float32; the weight gradients' block partials are
+    summed in another grouping)."""
+    from test_torch_parallel import _free_port, spawn
+    cfg = _cfg()
+    rng = np.random.default_rng(8)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    b, a, k, t = 2, cfg.max_num_obj, 4, cfg.pred_len
+    live = np.ones((b, a))
+    live[:, -1] = 0.0
+    fut = np.ones((b, a, t))
+    fut[0, 1, 3:] = 0.0
+    inp = {"ioc": [f(rng.uniform(0.2, 0.8, (b, a, k, t, 2))),
+                   f(np.tanh(rng.standard_normal((b, a, k, t, cfg.d_dim)))),
+                   f(rng.standard_normal((b, cfg.scene_grid, cfg.scene_grid,
+                                          cfg.scene_channels))),
+                   f(live), f(fut)],
+           "wts": f(rng.standard_normal((b, a, k)))}
+    torch.save(inp, tmp_path / "inputs.pt")
+    port = _free_port()
+    spawn(__file__, lambda r: ["lanes", str(r), str(port), str(tmp_path)],
+          2)
+    got = torch.load(tmp_path / "out.pt").numpy()
+    ref = _ioc_test_flat(None, _params(cfg, cuda_device), inp,
+                         cuda_device).numpy()
+    np.testing.assert_allclose(got[0], ref[0], rtol=2e-4)
+    np.testing.assert_allclose(got[1:], ref[1:], rtol=2e-4,
+                               atol=2e-5 * np.abs(ref[1:]).max())
+
+
+@pytest.mark.cuda
+def test_conv_decoder_on_the_card(cuda_device):
+    """The deconv mask decoder (vae_dec='conv', side 32) on the card
+    against the same function on the CPU, float32 (cuDNN's transposed
+    convolutions and the CPU's, TF32 off)."""
+    from desire_tpu_torch.models import sgm
+    cfg = _cfg(rnn_size=512, vae_dec="conv", latent_size=16)
+    p = sgm.init_sgm(torch.Generator().manual_seed(0), cfg, "cpu")
+    z = torch.randn((64, cfg.latent_size),
+                    generator=torch.Generator().manual_seed(1))
+    ref = sgm.vae_decode_mask(p, z, cfg.vae_side)
+    got = sgm.vae_decode_mask(to_device(p, cuda_device), z.to(cuda_device),
+                              cfg.vae_side)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), **TOL)
+
+
 if __name__ == "__main__":
-    _sharded_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+    if sys.argv[1] == "lanes":
+        _lane_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        _sharded_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])

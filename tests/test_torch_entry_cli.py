@@ -178,6 +178,32 @@ def test_evaluate_from_the_checkpoint(trained, caches, capsys, tmp_path):
                                                                   2)
 
 
+def test_visualize_renders_the_ports_dump(trained, caches, capsys, tmp_path):
+    """The repository's visualize.py (it imports neither JAX nor
+    desire_tpu) on the dump of ``python -m desire_tpu_torch.evaluate
+    --dump``: the dump holds every key it reads, and it writes one figure
+    for each window asked for, here all of them."""
+    pytest.importorskip("matplotlib")
+    dump = str(tmp_path / "dump.npz")
+    evaluate.main(["--device", "cpu", "--save_dir", trained["save"],
+                   "--data_dir", trained["data"], "--batch_size", "4",
+                   "--eval_hop", "8", "--num_samples", "3", "--dump", dump])
+    n = _lines(capsys)[0]["windows"]
+    z = np.load(dump)
+    assert {"obs_xy", "obs_mask", "fut_xy", "fut_mask", "traj", "scores",
+            "best", "live", "video", "scale"} <= set(z.files)
+    out = str(tmp_path / "figs")
+    env = dict(os.environ, MPLBACKEND="Agg")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "visualize.py"),
+                        dump, "--out", out, "--windows", str(n), "--dpi",
+                        "40"], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    assert len(pngs) == n > 0
+    assert r.stdout.split() == [os.path.join(out, f) for f in pngs]
+
+
 def test_predict_stream_mode(trained, capsys, monkeypatch):
     """tests/test_serve.py::test_predict_cli_stream_mode, mirrored."""
     sub, to = _TOY["subsample"], _TOY["obs_len"]

@@ -1,6 +1,7 @@
-"""Data-parallel training through the port's entry point on the CPU: two
+"""Training on a mesh through the port's entry point on the CPU: two
 processes of ``python -m desire_tpu_torch.train --device cpu --mesh_data 2
---coordinator localhost:PORT --num_processes 2 --process_id r`` (gloo)
+--coordinator localhost:PORT --num_processes 2 --process_id r`` (gloo;
+data-parallel) and two of ``--mesh_data 1 --mesh_k 2`` (lane-parallel)
 train 3 batches of a toy tree, evaluate on its held-out video and
 checkpoint; they are held against the single-process entry point on the
 same flags, and a run resumed in two processes from rank 0's checkpoint
@@ -58,9 +59,10 @@ def _argv(data_dir, save_dir, **extra):
 
 
 def _mesh_argv(port, rank, data_dir, save_dir, **extra):
-    return _argv(data_dir, save_dir, mesh_data=2, coordinator=
-                 f"localhost:{port}", num_processes=2, process_id=rank,
-                 dist_timeout=_PG_TIMEOUT, **extra)
+    extra.setdefault("mesh_data", 2)
+    return _argv(data_dir, save_dir, coordinator=f"localhost:{port}",
+                 num_processes=2, process_id=rank, dist_timeout=_PG_TIMEOUT,
+                 **extra)
 
 
 def _events(save_dir):
@@ -108,8 +110,45 @@ def runs(tmp_path_factory):
                        for r in range(2)])
 
 
-def _cfg(data, save_dir):
-    return DesireConfig(**dict(_TOY, data_dir=data, save_dir=save_dir))
+def _cfg(data, save_dir, **kw):
+    return DesireConfig(**dict(_TOY, data_dir=data, save_dir=save_dir, **kw))
+
+
+# lane-parallel: K = 4 lanes, two a rank
+_LANES = dict(mesh_data=1, mesh_k=2, num_samples=4)
+
+
+@pytest.fixture(scope="module")
+def lane_runs(tmp_path_factory):
+    """As ``runs``, with --mesh_data 1 --mesh_k 2 and 4 lanes: S the single
+    process on the same 4 lanes, M two processes, R M's run resumed after
+    its step-2 checkpoint in two processes."""
+    tmp = tmp_path_factory.mktemp("lanes")
+    data = str(tmp / "data")
+    for i in range(2):
+        _video(os.path.join(data, f"scene/video{i}/annotations_processed"
+                                  ".csv"), i, frames=70)
+    env = dict(os.environ, DESIRE_TORCH_CACHE_DIR=str(tmp / "cache"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DESIRE_TORCH_CACHE_DIR", env["DESIRE_TORCH_CACHE_DIR"])
+        single = run.train(_cfg(data, str(tmp / "S"), num_samples=4),
+                           eval_every=1, max_eval_batches=1,
+                           final_select_top=0, device="cpu", log_every=1)
+    save = [str(tmp / "M"), str(tmp / "M_rank1")]
+    port = _free_port()
+    spawn(__file__, lambda r: [str(tmp / f"M_params{r}.npz"), "--",
+                               *_mesh_argv(port, r, data, save[r],
+                                           **_LANES)], 2, env=env)
+    resumed = str(tmp / "R")
+    shutil.copytree(save[0], resumed)
+    shutil.rmtree(os.path.join(resumed, str(_STEPS)))
+    port = _free_port()
+    spawn("-m", lambda r: ["desire_tpu_torch.train", *_mesh_argv(
+        port, r, data, resumed, resume=1, **_LANES)], 2, env=env)
+    return dict(single=single, single_dir=str(tmp / "S"), save=save,
+                resumed=resumed,
+                ranks=[np.load(tmp / f"M_params{r}.npz")["params"]
+                       for r in range(2)])
 
 
 def test_two_ranks_train_as_one_process(runs):
@@ -199,6 +238,67 @@ def test_resume_in_two_processes_is_bit_for_bit(runs):
         _cfg("", ""), torch.Generator().manual_seed(0), "cpu"))
     assert ckpt.CheckpointManager(runs["resumed"]).restore(tmpl)[0].step \
         == _STEPS
+
+
+def test_lane_ranks_train_as_one_process(lane_runs):
+    """--mesh_k 2: rank 0 logs 3 steps whose losses, gradient norms and
+    metrics are the single-process run's (rtol 1e-5: each rank refines 2
+    of the 4 lanes, the gradients averaged over the two), and the
+    held-out evaluation."""
+    ev = _events(lane_runs["save"][0])
+    ref = _events(lane_runs["single_dir"])
+    train = [e for e in ev if e["event"] == "train"]
+    want = [e for e in ref if e["event"] == "train"]
+    assert len(train) == len(want) == _STEPS
+    for key in ("loss", "grad_norm", "nll", "kld", "ioc_ce", "refine_reg"):
+        np.testing.assert_allclose([e[key] for e in train],
+                                   [e[key] for e in want], rtol=1e-5,
+                                   err_msg=key)
+    evals = [e for e in ev if e["event"] == "eval"]
+    assert len(evals) == 1
+    np.testing.assert_allclose(
+        evals[0]["minADE_px"],
+        [e for e in ref if e["event"] == "eval"][0]["minADE_px"], rtol=1e-4)
+
+
+def test_lane_ranks_hold_the_same_params(lane_runs):
+    """Both lane ranks end with the same params, bit for bit, and with the
+    single-process run's up to Adam's sign flips of noise-level
+    gradients (test_ranks_hold_the_same_params's rule)."""
+    np.testing.assert_array_equal(lane_runs["ranks"][0],
+                                  lane_runs["ranks"][1])
+    ref = np.concatenate([x.numpy().ravel() for x in
+                          tree_leaves(lane_runs["single"].params)])
+    diff = np.abs(lane_runs["ranks"][0] - ref)
+    assert diff.max() <= 2 * _TOY["learning_rate"] * _STEPS + 1e-5
+    assert (diff > 1e-4).mean() <= 1e-3
+
+
+def test_lane_rank1_writes_nothing(lane_runs):
+    """Lane rank 1 writes no metrics, checkpoint or best/; rank 0 its
+    checkpoints and best/."""
+    rank1 = lane_runs["save"][1]
+    assert not os.path.exists(os.path.join(rank1, "metrics.jsonl"))
+    assert ckpt.CheckpointManager(rank1).latest_step() is None
+    assert not os.path.exists(os.path.join(rank1, "best"))
+    assert ckpt.CheckpointManager(lane_runs["save"][0]).all_steps() == [2, 3]
+    assert ckpt.load_config(lane_runs["save"][0]).mesh_k == 2
+
+
+def test_lane_resume_in_two_processes_is_bit_for_bit(lane_runs):
+    """The --mesh_k 2 run resumed from rank 0's step-2 checkpoint: its
+    step-3 checkpoint equals the uninterrupted run's bit for bit."""
+    res = [e for e in _events(lane_runs["resumed"]) if e["event"] ==
+           "resume"]
+    assert len(res) == 1 and (res[0]["step"], res[0]["batch"]) == (2, 2)
+    got = _payload(lane_runs["resumed"], _STEPS)
+    want = _payload(lane_runs["save"][0], _STEPS)
+    for key in ("params", "mu", "nu"):
+        for a, b in zip(tree_leaves(got[key]), tree_leaves(want[key])):
+            assert torch.equal(a, b), key
+    assert torch.equal(got["generator"], want["generator"])
+    for key in ("count", "step", "loader_epoch", "loader_batch"):
+        assert got[key] == want[key], key
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The port's parallel layer (desire_tpu_torch/parallel) on the CPU: the
 mesh, the loader's row hook and, in one 4-rank gloo world (this file run
 as a script, one process a rank), the sharded sampler and IOC ops, the
-meshed forward and Predictor, and the data-parallel training step and
-epoch, each held against the unsharded port and the JAX package.
+meshed forward and Predictor, the data-parallel training step and epoch,
+and lane-parallel training (the sharded trainable IOC, the (2, 2) loss
+and step), each held against the unsharded port and the JAX package.
 
 Tolerances: float32; a meshed result against the unsharded port within
 rtol = atol = 1e-5 (the same arithmetic on fewer rows; matrix products
@@ -226,11 +227,25 @@ def _rank_main(rank, port, workdir):
         info["predictor_odd_windows"] = "no error"
     except ValueError as e:
         info["predictor_odd_windows"] = str(e)
-    try:
-        trainer.make_train_step(cfg, 10, mesh=m22)
-        info["lane_parallel_training"] = "no error"
-    except NotImplementedError as e:
-        info["lane_parallel_training"] = str(e)
+
+    # lane-parallel training on the (2, 2) mesh: the sharded trainable IOC,
+    # the loss's gradients in three IOC variants and one step
+    for freeze in (False, True):
+        out[f"ioc_train_freeze{int(freeze)}"] = ioc_train_flat(
+            m22, params, inp, freeze)
+    rows22 = [T(inp[f"t_{x}"][m22.rows(cfg.batch_size)]) for x in
+              ("xy", "mask", "ids")]
+    noise22 = {key[4:]: T(v) for key, v in inp.items()
+               if key.startswith("j22_")}
+    for name, variant in _LANE_VARIANTS.items():
+        out[f"grads22_{name}"] = loss_grads_flat(
+            m22, small_cfg(**variant), _params(cfg), rows22, noise22)
+    new, met = trainer.make_train_step(cfg, 10, mesh=m22)(
+        create_train_state(cfg, _params(cfg)), *rows22, noise=noise22)
+    out["step22_params"] = np.concatenate(
+        [x.numpy().ravel() for x in tree_leaves(new.params)])
+    for key, v in met.items():
+        out[f"step22_{key}"] = float(v)
 
     # data parallel: four ranks of two rows each
     m41 = mesh(4, 1)
@@ -245,17 +260,7 @@ def _rank_main(rank, port, workdir):
         [x.numpy().ravel() for x in tree_leaves(new.params)])
     for key, v in met.items():
         out[f"step_{key}"] = float(v)
-    leaves = [x.detach().requires_grad_(True)
-              for x in tree_leaves(state.params)]
-    from desire_tpu_torch.train.state import tree_unflatten
-    total, _ = tdesire.desire_loss(
-        tree_unflatten(state.params, leaves), cfg, *rows, step=0,
-        noise={key: v[m41.rows(v.shape[0])] for key, v in noise.items()},
-        mesh=m41)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    flat = torch.cat([(torch.zeros_like(x) if g is None else g).ravel()
-                      for g, x in zip(grads, leaves)])
-    out["grads"] = mesh_mod.all_sum(m41, flat).numpy()
+    out["grads"] = loss_grads_flat(m41, cfg, state.params, rows, noise)
 
     # run_epoch over the loader's rows of 3 batches, with the JAX step's
     # draws pinned step by step
@@ -279,6 +284,78 @@ def _rank_main(rank, port, workdir):
         json.dump(info, f)
     mesh_mod.barrier(m22)
     torch.distributed.destroy_process_group()
+
+
+_LANE_VARIANTS = {"fused": {}, "layer_ioc": dict(fused_train=False),
+                  "no_social": dict(use_social=False)}
+
+
+def ioc_train_flat(mesh, params, inp, social_freeze):
+    """tests/test_kernels.py:388's loss of the trainable IOC on the inputs
+    i_*: its value and its gradients (the IOC and message leaves, traj,
+    dec_h, feat_map) as one float32 array. mesh None: ``ioc_refine_train``
+    on every row; a mesh: this rank's rows through
+    ``ioc_refine_train_sharded``, its value and gradients (global shapes,
+    its rows filled) summed over the mesh and divided by mk, as the
+    training step reduces them."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.models.ioc import _DELTA_SCALE
+    from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
+    b = len(inp["i_traj"])
+    r = slice(None) if mesh is None else mesh.rows(b)
+    T = lambda key: torch.from_numpy(inp[key][r].copy())
+    trees = {"ioc": params["ioc"],
+             "scf": {"soc_msg": params["scf"]["soc_msg"],
+                     "soc_logtau": params["scf"]["soc_logtau"]}}
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in tree_leaves(trees)]
+    trees = tree_unflatten(trees, leaves)
+    data = [T(f"i_{k}").requires_grad_(True)
+            for k in ("traj", "dec_h", "feat_map")]
+    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze)
+    args = (trees["ioc"], trees["scf"], *data, T("i_live"),
+            T("i_fut_mask"))
+    if mesh is None:
+        refined, scores, iters = ops.ioc_refine_train(*args, **kw)
+    else:
+        refined, scores, iters = ops.ioc_refine_train_sharded(mesh, *args,
+                                                              **kw)
+    value = ((refined ** 2).sum() + (scores * T("i_wts")).sum()
+             + (iters ** 2).sum())
+    grads = torch.autograd.grad(value, leaves + data)
+    parts = [value.detach().reshape(1)]
+    parts += [g.reshape(-1) for g in grads[:len(leaves)]]
+    for g, x in zip(grads[len(leaves):], ("traj", "dec_h", "feat_map")):
+        full = torch.zeros(inp[f"i_{x}"].shape)
+        full[r] = g
+        parts.append(full.reshape(-1))
+    flat = torch.cat(parts)
+    if mesh is not None:
+        flat = mesh_mod.all_sum(mesh, flat, axis=mesh_mod.MESH) / \
+            mesh.shape[1]
+    return flat.numpy()
+
+
+def loss_grads_flat(mesh, cfg, params, batch, noise):
+    """desire_loss's parameter gradients as one flat array, with the step's
+    draws ``noise`` (global; a rank takes its rows). mesh None: the whole
+    batch; a mesh: its rows of it, the gradients summed over the mesh and
+    divided by mk (the training step's reduction)."""
+    from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in tree_leaves(params)]
+    if mesh is not None:
+        noise = {k: v[mesh.rows(v.shape[0])] for k, v in noise.items()}
+    total, _ = tdesire.desire_loss(tree_unflatten(params, leaves), cfg,
+                                   *batch, step=0, noise=noise, mesh=mesh)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(x) if g is None else g).ravel()
+                      for g, x in zip(grads, leaves)])
+    if mesh is not None:
+        flat = mesh_mod.all_sum(mesh, flat, axis=mesh_mod.MESH) / \
+            mesh.shape[1]
+    return flat.numpy()
 
 
 # -- the parent: inputs, references, the spawn --------------------------------
@@ -317,6 +394,23 @@ def spawn(script, args_of_rank, world, env=None, wall=_WALL):
     return logs
 
 
+def _jax_loss_draws(cfg, key):
+    """The draws of JAX desire_loss(key=key) on a batch of
+    cfg.batch_size, as numpy."""
+    import jax
+    key, k_lanes = jax.random.split(key)
+    k_eps, kdx, kdy = jax.random.split(key, 3)
+    n, k = cfg.batch_size * cfg.max_num_obj, cfg.num_samples
+    out = {"eps": jax.random.normal(k_eps, (n, k, cfg.latent_size)),
+           "keep_x": jax.random.bernoulli(
+               kdx, cfg.keep_prob, (n, cfg.obs_len, cfg.embedding_size)),
+           "keep_y": jax.random.bernoulli(
+               kdy, cfg.keep_prob, (n, cfg.pred_len, cfg.embedding_size)),
+           "lane_u": jax.random.uniform(
+               k_lanes, (cfg.batch_size, cfg.max_num_obj, k))}
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
 def _jax_epoch_draws(cfg, key, steps):
     """The draws of JAX run_epoch's first steps from state key ``key``
     (speed_aug 0: desire_loss(key=sub) of each step's split), as numpy."""
@@ -324,18 +418,8 @@ def _jax_epoch_draws(cfg, key, steps):
     out = []
     for _ in range(steps):
         key, sub = jax.random.split(key)
-        sub, k_lanes = jax.random.split(sub)
-        k_eps, kdx, kdy = jax.random.split(sub, 3)
-        n, k = cfg.batch_size * cfg.max_num_obj, cfg.num_samples
-        out.append({
-            "eps": jax.random.normal(k_eps, (n, k, cfg.latent_size)),
-            "keep_x": jax.random.bernoulli(
-                kdx, cfg.keep_prob, (n, cfg.obs_len, cfg.embedding_size)),
-            "keep_y": jax.random.bernoulli(
-                kdy, cfg.keep_prob, (n, cfg.pred_len, cfg.embedding_size)),
-            "lane_u": jax.random.uniform(
-                k_lanes, (cfg.batch_size, cfg.max_num_obj, k))})
-    return [{k: np.asarray(v, np.float32) for k, v in d.items()} for d in out]
+        out.append(_jax_loss_draws(cfg, sub))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -361,6 +445,8 @@ def world(tmp_path_factory):
              < cfg.keep_prob}
     inp = {f"s_{k}": v for k, v in _sampler_inputs(cfg, 16).items()}
     inp.update({f"i_{k}": v for k, v in _ioc_inputs(cfg, 4).items()})
+    inp["i_wts"] = rng.standard_normal(
+        (4, cfg.max_num_obj, cfg.num_samples)).astype(np.float32)
     inp.update(f_xy=xy, f_mask=mask, f_ids=ids, f_eps=f_eps)
     t_xy, t_mask, t_ids = _batch(cfg, cfg.batch_size, seed=4)
     inp.update(t_xy=t_xy, t_mask=t_mask, t_ids=t_ids)
@@ -371,6 +457,9 @@ def world(tmp_path_factory):
     for i, d in enumerate(_jax_epoch_draws(cfg, jax.random.PRNGKey(11),
                                            _EPOCH_BATCHES)):
         inp.update({f"epoch{i}_{k}": v for k, v in d.items()})
+    # the (2, 2) step's draws: the JAX step's from state key 12
+    inp.update({f"j22_{k}": v for k, v in _jax_epoch_draws(
+        cfg, jax.random.PRNGKey(12), 1)[0].items()})
     np.savez(workdir / "inputs.npz", **inp)
     port = _free_port()
     env = dict(os.environ, DESIRE_TORCH_CACHE_DIR=str(workdir / "cache"))
@@ -601,11 +690,6 @@ def test_meshed_predictor_matches_unmeshed(world):
             "predictor_odd_windows"]
 
 
-def test_lane_parallel_training_not_ported(world):
-    for info in world["infos"]:
-        assert "lane-parallel training" in info["lane_parallel_training"]
-
-
 def _unsharded_step(world):
     from desire_tpu_torch.train import trainer
     from desire_tpu_torch.train.state import create_train_state, tree_leaves
@@ -653,6 +737,150 @@ def test_data_parallel_grads_match_unsharded_tight(world):
     got = _all_ranks_equal(world, "grads")
     np.testing.assert_allclose(got, ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
+
+
+def _leaf_sizes(cfg):
+    from desire_tpu_torch.train.state import tree_leaves
+    return [x.numel() for x in tree_leaves(_params(cfg))]
+
+
+def _check_leaves(got, ref, sizes, rtol):
+    """Flat gradients compared leaf by leaf, as tests/test_parallel.py:79
+    compares them: rtol, and an atol of rtol times the leaf's peak with a
+    floor (tests/test_parallel.py's is 1e-7; here 1e-6). A leaf whose
+    gradient is 0 up to float32 noise differs by reduction-order noise
+    that means nothing in relative terms: the IOC score head's bias, whose
+    gradient under the shift-invariant ranking softmax is a sum of B A K T
+    terms that cancel exactly, comes out at ~2e-7 from gradients that are
+    summed over the lane blocks (mk times each block's) and ~1e-8
+    unsharded."""
+    at = np.cumsum([0] + sizes)
+    assert got.shape == ref.shape == (at[-1],)
+    for i, (a, b) in enumerate(zip(at[:-1], at[1:])):
+        atol = max(rtol * float(np.abs(ref[a:b]).max()), 1e-6)
+        np.testing.assert_allclose(got[a:b], ref[a:b], rtol=rtol,
+                                   atol=atol, err_msg=f"leaf {i}")
+
+
+@pytest.mark.parametrize("social_freeze", [False, True])
+def test_sharded_ioc_training_matches_unsharded(world, social_freeze):
+    """ioc_refine_train_sharded on the (2, 2) mesh, its gradients reduced
+    as the training step reduces them: the value and every gradient (the
+    IOC and message parameters, traj, dec_h, feat_map) against the
+    unsharded ioc_refine_train."""
+    cfg, inp = world["cfg"], world["inp"]
+    got = _all_ranks_equal(world, f"ioc_train_freeze{int(social_freeze)}")
+    ref = ioc_train_flat(None, _params(cfg), inp, social_freeze)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1:], ref[1:], rtol=1e-5,
+                               atol=1e-5 * np.abs(ref[1:]).max())
+
+
+def test_sharded_ioc_training_matches_jax(world):
+    """tests/test_kernels.py:388: the same value and gradients against
+    JAX's make_trainable_fused_ioc_sharded on the (2, 2) CPU mesh
+    (interpret mode), rtol = atol = 1e-4."""
+    import jax
+    import jax.numpy as jnp
+    from desire_tpu.ops.ioc_fused import make_trainable_fused_ioc_sharded
+    from desire_tpu.parallel import mesh as jmesh
+    from desire_tpu_torch.train.state import tree_leaves
+    cfg, inp = world["cfg"], world["inp"]
+    jp = _jax_tree(_params(cfg))
+    fused = make_trainable_fused_ioc_sharded(cfg, jmesh.make_mesh(2, 2),
+                                             interpret=True)
+    live, fut, wts = (jnp.asarray(inp[f"i_{k}"])
+                      for k in ("live", "fut_mask", "wts"))
+
+    def loss(p_ioc, p_scf, traj, dec_h, feat_map):
+        refined, scores, iters = fused(p_ioc, p_scf, traj, dec_h, feat_map,
+                                       live, fut)
+        return (jnp.sum(refined ** 2) + jnp.sum(scores * wts)
+                + jnp.sum(iters ** 2))
+
+    v, (g_ioc, g_scf, *g_data) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3, 4)))(
+        jp["ioc"], jp["scf"],
+        *(jnp.asarray(inp[f"i_{k}"]) for k in ("traj", "dec_h", "feat_map")))
+    ref = np.concatenate([np.asarray(v).reshape(1)] + [
+        np.asarray(x).ravel() for x in tree_leaves(
+            {"ioc": g_ioc, "scf": {"soc_msg": g_scf["soc_msg"],
+                                   "soc_logtau": g_scf["soc_logtau"]}})
+        + g_data])
+    got = _all_ranks_equal(world, "ioc_train_freeze0")
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _noise22(world):
+    return {k[4:]: torch.from_numpy(v.copy()) for k, v in
+            world["inp"].items() if k.startswith("j22_")}
+
+
+@pytest.mark.parametrize("name", sorted(_LANE_VARIANTS))
+def test_lane_parallel_grads_match_unsharded(world, name):
+    """desire_loss on the (2, 2) mesh, every rank its rows and its lanes of
+    the IOC (the fused trainable IOC, the layer-by-layer ioc_forward, and
+    with use_social=False), the gradients reduced as the step reduces
+    them, against the unsharded gradients leaf by leaf (1e-4)."""
+    cfg, inp = world["cfg"], world["inp"]
+    batch = [torch.from_numpy(inp[f"t_{x}"]) for x in ("xy", "mask", "ids")]
+    ref = loss_grads_flat(None, small_cfg(**_LANE_VARIANTS[name]),
+                          _params(cfg), batch, _noise22(world))
+    _check_leaves(_all_ranks_equal(world, f"grads22_{name}"), ref,
+                  _leaf_sizes(cfg), rtol=1e-4)
+
+
+def test_lane_parallel_step_matches_unsharded(world):
+    """One make_train_step(mesh=(2, 2)) step against the unsharded step
+    from the same state and draws: the loss within 1e-5 relative, every
+    metric within the meshed tolerance, the ranks' params bit for bit
+    equal, and the unsharded step's up to Adam's sign flips of
+    noise-level gradients (test_data_parallel_step_matches_unsharded)."""
+    from desire_tpu_torch.train import trainer
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
+    cfg, inp = world["cfg"], world["inp"]
+    batch = [torch.from_numpy(inp[f"t_{x}"]) for x in ("xy", "mask", "ids")]
+    new, met = trainer.make_train_step(cfg, 10)(
+        create_train_state(cfg, _params(cfg)), *batch, noise=_noise22(world))
+    np.testing.assert_allclose(_all_ranks_equal(world, "step22_loss"),
+                               float(met["loss"]), rtol=1e-5)
+    for key, v in met.items():
+        np.testing.assert_allclose(_all_ranks_equal(world, f"step22_{key}"),
+                                   float(v), err_msg=key, **MESHED_TOL)
+    got = _all_ranks_equal(world, "step22_params")
+    diff = np.abs(got - np.concatenate([x.numpy().ravel()
+                                        for x in tree_leaves(new.params)]))
+    assert diff.max() <= 2 * cfg.learning_rate + 1e-5
+    assert (diff > 1e-4).mean() <= 1e-3
+
+
+def test_lane_parallel_step_matches_jax(world):
+    """tests/test_parallel.py:45: the (2, 2) step against JAX's
+    make_train_step(mesh=make_mesh(2, 2)) from the same params and state
+    key, the JAX draws pinned: every metric within the port's JAX
+    tolerance, the params within Adam's lr-sized first step."""
+    import jax
+    import jax.numpy as jnp
+    from desire_tpu.parallel import mesh as jmesh
+    from desire_tpu.train import state as jstate
+    from desire_tpu.train import trainer as jtrainer
+    cfg, inp = world["cfg"], world["inp"]
+    jm = jmesh.make_mesh(2, 2)
+    sh = jmesh.batch_sharding(jm)
+    state = jstate.create_train_state(
+        cfg, jax.tree_util.tree_map(jnp.array, _jax_tree(_params(cfg))),
+        10, key=jax.random.PRNGKey(12))
+    new, met = jtrainer.make_train_step(cfg, 10, mesh=jm)(
+        state, *(jax.device_put(jnp.asarray(inp[f"t_{x}"]), sh)
+                 for x in ("xy", "mask", "ids")))
+    for key, v in met.items():
+        np.testing.assert_allclose(_all_ranks_equal(world, f"step22_{key}"),
+                                   float(v), err_msg=key, **JAX_SCORE_TOL)
+    ref = np.concatenate([np.asarray(x).ravel()
+                          for x in jax.tree_util.tree_leaves(new.params)])
+    diff = np.abs(_all_ranks_equal(world, "step22_params") - ref)
+    assert diff.max() <= 2 * cfg.learning_rate + 1e-5
+    assert (diff > 1e-4).mean() <= 1e-3
 
 
 def test_data_parallel_epoch_matches_jax(world, tmp_path, monkeypatch):
