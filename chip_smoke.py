@@ -133,6 +133,19 @@ F32_SCORE_TOL = dict(rtol=2e-4, atol=2e-4)
 BF16_TOL = {"dec_h": 0.05, "hx": 0.05, "refined": 5e-3, "scores": 0.1}
 # mean absolute errors, which catch a systematic fault the max would hide
 BF16_MEAN_TOL = {"dec_h": 2e-3, "hx": 2e-3, "refined": 2e-4, "scores": 5e-3}
+# bf16 IOC outputs on the model's own inputs (a training step's, a conv
+# model's requests: phases 10-11), where BF16_TOL's random inputs are left
+# behind: the scores reach |s| ~ 20, where one bf16 step is 0.125, and
+# rounding flips compound over 4 passes x 12 GRU steps. Read on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W): the kernel's largest distance from
+# plain over the sound calls 9.1e-3 (refined) and 0.37 (scores), the
+# smallest that bf16 tells from that noise among the planted faults
+# (ioc_faults_caught) 0.11 and 4.0; each limit lies near the geometric
+# mean of the two. One lane's lost load (8e-3-0.07, 0.1-0.4) lies inside
+# the noise: the float32 kernel on the same inputs, within phase 6's
+# float32 tolerances, catches it (check_ioc_path_call). The means keep
+# BF16_MEAN_TOL.
+PATH_BF16_TOL = {"refined": 0.03, "scores": 1.2}
 
 
 def nvidia_smi_line():
@@ -230,12 +243,15 @@ def check_close(name, got, ref, rtol, atol):
     return mx
 
 
-def check_bf16(name, got, ref, verbose=True):
+def check_bf16(name, got, ref, verbose=True, tol=BF16_TOL):
+    """A bf16 kernel output against its plain version's: the max abs error
+    within tol[name], the mean within BF16_MEAN_TOL[name]. Returns the
+    max."""
     mx, mean = errors(got, ref)
-    ok = (bool(torch.isfinite(got).all()) and mx <= BF16_TOL[name]
+    ok = (bool(torch.isfinite(got).all()) and mx <= tol[name]
           and mean <= BF16_MEAN_TOL[name])
     if verbose or not ok:
-        print(f"  {name}: max_abs_err={mx:.3e} (<= {BF16_TOL[name]}) "
+        print(f"  {name}: max_abs_err={mx:.3e} (<= {tol[name]}) "
               f"mean_abs_err={mean:.3e} (<= {BF16_MEAN_TOL[name]}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -1383,84 +1399,151 @@ def recorded_serving_calls():
         ops.ioc_refine = ioc_fused.ioc_refine = saved[1]
 
 
-def check_recorded_calls(calls, verbose=True, against_f32=False):
+def check_recorded_calls(calls, verbose=True, path=False):
     """Hold each recorded bf16 serving kernel call (recorded_serving_calls)
     against its plain version on the inputs that call was given (BF16_TOL,
-    BF16_MEAN_TOL; verbose=False prints only failures). Returns {kernel
-    name: [calls checked, max abs error]}. against_f32: the IOC calls by
-    check_bf16_noise (the plain version's own error against the float32
-    computation bounds the max where it exceeds BF16_TOL), for the
-    inputs of the conv model's path; the row then also holds that
-    error's max."""
+    BF16_MEAN_TOL; verbose=False prints only failures). path: the IOC
+    calls are on the model's own inputs (phase 11), held by
+    check_ioc_path_call, the first with a live agent also planting faults.
+    Returns {kernel name: [calls checked, max abs error]} (on a path, the
+    IOC's [calls, bf16 max abs error, float32 max abs error]), and under
+    "faults" the planted faults' errors."""
     from desire_tpu_torch.ops import ioc_fused, sgm_fused
     out = {}
     for name, a, kw, got in calls:
         kw = {k: v for k, v in kw.items() if k != "weights"}
-        row = out.setdefault(name, [0, 0.0] + ([0.0] if against_f32
-                                                and name != "sgm_sample"
-                                                else []))
-        row[0] += 1
         if name == "sgm_sample":
+            row = out.setdefault(name, [0, 0.0])
             ref = sgm_fused.sgm_sample_decode_plain(*a, **kw)
-            keys = ("dec_h", "hx")
-        else:
+            for key, x, y in zip(("dec_h", "hx"), got, ref):
+                row[1] = max(row[1], check_bf16(key, x, y, verbose))
+        elif not path:
+            row = out.setdefault(name, [0, 0.0])
             ref = ioc_fused.ioc_refine_plain(*a, **kw)
-            keys = ("refined", "scores")
-        if name == "sgm_sample" or not against_f32:
-            for key, x, y in zip(keys, got, ref):
+            for key, x, y in zip(("refined", "scores"), got, ref):
                 row[1] = max(row[1], check_bf16(key, x, y, verbose))
         else:
-            p_ioc, p_scf, traj, dec_h, fmap, *rest = a
-            exact = ioc_fused.ioc_refine_plain(p_ioc, p_scf, traj,
-                                               dec_h.float(), fmap.float(),
-                                               *rest, **kw)
-            for key, x, y, z in zip(keys, got, ref, exact):
-                err, noise = check_bf16_noise(key, x, y, z)
-                row[1], row[2] = max(row[1], err), max(row[2], noise)
-            del exact
+            row, ref = out.setdefault(name, [0, 0.0, 0.0]), None
+            p_ioc, p_scf, *data = a
+            e16, e32, faults = check_ioc_path_call(
+                lambda *d: ioc_fused.ioc_refine(p_ioc, p_scf, *d, **kw),
+                lambda *d: ioc_fused.ioc_refine_plain(p_ioc, p_scf, *d,
+                                                      **kw),
+                data, (("refined", "refined"), ("scores", "scores")),
+                plant=out.get("faults") is None, got=got)
+            row[1] = max(row[1], *e16.values())
+            row[2] = max(row[2], *e32.values())
+            out["faults"] = out.get("faults") or faults
+        row[0] += 1
         del ref
+    if path and "ioc_refine" in out:
+        faults_planted(out)
     return out
 
 
-def check_bf16_noise(name, got, ref, exact):
-    """A bf16 IOC kernel output against the plain bf16 version's (ref) on
-    the path's inputs: the mean absolute error within BF16_MEAN_TOL; the
-    max within BF16_TOL or, where larger, within the plain version's own
-    max error against the float32 computation (exact). BF16_TOL was set on
-    phase 6's random inputs; on a training step's inputs the scores reach
-    |s| ~ 20, rounding flips compound over more of the 4 passes x 12 GRU
-    steps, and both bf16 versions lie up to ~2 (scores) from float32, the
-    kernel no farther than the plain version (chip_smoke.py phase 10,
-    NVIDIA H100): a kernel fault moves its outputs by more than bf16
-    rounding does, and the mean error stays bounded as before. Prints only
-    a failure. Returns (max abs error, the plain version's against
-    float32)."""
-    mx, mean = errors(got, ref)
-    noise = errors(ref, exact)[0]
-    bound = max(BF16_TOL[name], noise)
-    ok = (bool(torch.isfinite(got).all()) and mx <= bound
-          and mean <= BF16_MEAN_TOL[name])
+def faults_planted(out):
+    if out.get("faults") is None:
+        raise AssertionError("no IOC call with a live agent to plant the "
+                             "faults in")
+
+
+def widen(data):
+    """IOC inputs (traj, dec_h, feat_map, live, fut_mask) with the
+    activations in float32."""
+    traj, dec_h, fmap, live, fut = data
+    return traj, dec_h.float(), fmap.float(), live, fut
+
+
+def f32_path_errors(got, ref, keys):
+    """Max abs errors of float32 IOC outputs by name, and whether all lie
+    within phase 6's float32 tolerances (F32_SCORE_TOL for the scores,
+    F32_TOL for positions)."""
+    errs, ok = {}, True
+    for (label, key), x, y in zip(keys, got, ref):
+        errs[label] = errors(x, y)[0]
+        ok &= torch.allclose(x, y, **(F32_SCORE_TOL if key == "scores"
+                                      else F32_TOL))
+    return errs, ok
+
+
+def check_ioc_path_call(kernel, plain, data, keys, plant, got=None):
+    """Hold one bf16 IOC kernel call on the model's own inputs (phases
+    10-11) against its plain version, two ways: its bf16 outputs within
+    PATH_BF16_TOL (max) and BF16_MEAN_TOL (mean); and the kernel run in
+    float32 on the same inputs against the plain float32 computation,
+    within phase 6's float32 tolerances, where the rounding noise that
+    bf16 amplifies over the passes is gone. kernel(*inputs), plain(*inputs)
+    compute in dec_h's dtype; data = (traj, dec_h, feat_map, live,
+    fut_mask); keys: each output's (name, PATH_BF16_TOL entry); got: the
+    bf16 kernel's outputs if already computed. With plant, also the planted
+    faults (ioc_faults_caught). Returns ({name: bf16 max abs error},
+    {name: float32 max abs error}, the faults' errors or None)."""
+    wide = widen(data)
+    ref, ref32 = plain(*data), plain(*wide)
+    e16 = {label: check_bf16(key, x, y, verbose=False, tol=PATH_BF16_TOL)
+           for (label, key), x, y in zip(keys, got or kernel(*data), ref)}
+    e32, ok = f32_path_errors(kernel(*wide), ref32, keys)
     if not ok:
-        print(f"  {name}: max_abs_err={mx:.3e} (<= {bound:.3e}: "
-              f"{BF16_TOL[name]} or the plain bf16 version's max error "
-              f"against float32, {noise:.3e}) mean_abs_err={mean:.3e} (<= "
-              f"{BF16_MEAN_TOL[name]}) FAIL", flush=True)
-        raise AssertionError(f"{name}: bf16 kernel disagrees with its plain "
-                             f"version (max {mx:.3e}, mean {mean:.3e})")
-    return mx, noise
+        raise AssertionError(f"the float32 IOC kernel on the path's inputs "
+                             f"disagrees with its plain version: {e32}")
+    faults = (ioc_faults_caught(kernel, data, ref, ref32, keys) if plant
+              else None)
+    return e16, e32, faults
+
+
+def ioc_faults_caught(kernel, data, ref, ref32, keys):
+    """Planted faults that check_ioc_path_call must reject: the kernel on
+    inputs with the fault, in bf16 and in float32, against the sound plain
+    outputs ref and ref32 (keys as there). The faults: the positions read
+    at bf16 (a lower-precision control), the scene map one cell off (an
+    index fault of the pooling) and one lane's last hidden state lost (a
+    missed load). Raises unless each fault moves some bf16 output past its
+    PATH_BF16_TOL or BF16_MEAN_TOL, or some float32 output past phase 6's
+    float32 tolerance. Returns {fault: {"bf16": max abs error by output,
+    "float32": the same, "caught": by which}}, or None where no agent is
+    live (a warm-up's empty window)."""
+    traj, dec_h, fmap, live, fut = data
+    if not bool((live > 0).any()):
+        return None
+    b0, a0 = (live > 0).nonzero()[0].tolist()
+    lost = dec_h.clone()
+    lost[b0, a0, 0, -1] = 0
+    faults = {"positions at bf16": (traj.bfloat16().float(), dec_h, fmap,
+                                    live, fut),
+              "scene map one cell off": (traj, dec_h,
+                                         fmap.roll(1, 2).contiguous(), live,
+                                         fut),
+              "a lane's last hidden state lost": (traj, lost, fmap, live,
+                                                  fut)}
+    out = {}
+    for fault, inputs in faults.items():
+        e16, by_bf16 = {}, False
+        for (label, key), x, y in zip(keys, kernel(*inputs), ref):
+            mx, mean = errors(x, y)
+            e16[label] = mx
+            by_bf16 |= mx > PATH_BF16_TOL[key] or mean > BF16_MEAN_TOL[key]
+        e32, ok = f32_path_errors(kernel(*widen(inputs)), ref32, keys)
+        caught = [w for w, c in (("bf16", by_bf16), ("float32", not ok)) if c]
+        if not caught:
+            raise AssertionError(f"the planted fault '{fault}' passes the "
+                                 f"path check: bf16 {e16}, float32 {e32}")
+        out[fault] = {"bf16": e16, "float32": e32, "caught": caught}
+    return out
 
 
 @contextlib.contextmanager
 def recorded_training_calls():
     """Record the inputs of every call of the training kernels' call
     sites: the trainable IOC (``ops.ioc_refine_train``; under a mesh, its
-    launches on the rank's lane block inside ``ioc_refine_train_sharded``)
-    and the NLL (``ops.bivariate_nll_sum``), which go through as usual;
-    yields the list of (kernel name, detached args, kwargs)."""
+    launches on the rank's lane block inside ``ioc_refine_train_sharded``),
+    the NLL (``ops.bivariate_nll_sum``) and the scene pool of the layer-by-
+    layer IOC (``ops.bilinear_pool``, with the gradient that reaches its
+    output, appended to its args when the backward runs); all go through as
+    usual. Yields the list of (kernel name, detached args, kwargs)."""
     from desire_tpu_torch import ops
     from desire_tpu_torch.ops import ioc_bwd
     calls = []
-    saved = ops.ioc_refine_train, ops.bivariate_nll_sum
+    saved = ops.ioc_refine_train, ops.bivariate_nll_sum, ops.bilinear_pool
 
     def detach(x):
         if isinstance(x, dict):
@@ -1474,61 +1557,96 @@ def recorded_training_calls():
             calls.append((name, detach(list(a)), kw))
             return fn(*a, **kw)
         return call
+
+    def pool(feat_map, pos):
+        args = [feat_map.detach(), pos.detach().float()]
+        calls.append(("scene_pool", args, {}))
+        out = saved[2](feat_map, pos)
+        if out.requires_grad:
+            out.register_hook(lambda g: args.append(g.detach()))
+        return out
     ops.ioc_refine_train = ioc_bwd.ioc_refine_train = recorder(
         "ioc_refine_train", saved[0])
     ops.bivariate_nll_sum = recorder("nll", saved[1])
+    ops.bilinear_pool = pool
     try:
         yield calls
     finally:
         ops.ioc_refine_train = ioc_bwd.ioc_refine_train = saved[0]
-        ops.bivariate_nll_sum = saved[1]
+        ops.bivariate_nll_sum, ops.bilinear_pool = saved[1:]
 
 
-def check_training_calls(calls, cfg, seed=0):
+# each recorded training call site and the launches it makes, one each
+TRAINING_CALL_LAUNCHES = {"ioc_refine_train": ("ioc_refine_train",
+                                               "ioc_refine_bwd"),
+                          "nll": ("nll_fwd", "nll_bwd"),
+                          "scene_pool": ("scene_pool_fwd",)}
+
+
+def check_training_calls(calls, cfg, launches, seed=0):
     """Hold each recorded bf16 training kernel call
     (recorded_training_calls) against its plain version on the inputs it
-    was given: the IOC training forward kernel's refined positions, float32
-    scores and every pass's positions (check_bf16_noise, against the
-    float32 computation too) and, for a test loss of the training op's
-    outputs, its backward kernel against autograd through the plain
-    version, leaf by leaf (BF16_GRAD_REL_*), as phase 6b; the NLL forward
-    (NLL_TOL) and its backward kernel for a random cotangent
-    (NLL_GRAD_TOL). Prints only failures. Returns {kernel name: {"calls",
-    "fwd" and "bwd" max abs errors; for the IOC "noise", the plain bf16
-    version's max error against float32 by output}}.
+    was given, after checking that every launch of these kernels in
+    ``launches`` (the run's counts) has its recorded call, so that no
+    launch goes unchecked: the IOC training forward kernel's refined
+    positions, float32 scores and every pass's positions
+    (check_ioc_path_call; the first call also plants faults) and, for a
+    test loss of the training op's outputs, its backward kernel against
+    autograd through the plain version, leaf by leaf (BF16_GRAD_REL_*), as
+    phase 6b; the NLL forward (NLL_TOL) and its backward kernel for a
+    random cotangent (NLL_GRAD_TOL); the scene pool's
+    forward (bitwise for bf16, as phase 7) and its gradient kernel for the
+    gradient its output received (POOL_*_TOL). Prints only failures.
+    Returns {kernel name: {"calls", "fwd" and "bwd" max abs errors (the
+    IOC's "fwd" and "fwd32", bf16 and float32, by output)}}, and under
+    "faults" the planted faults' errors.
 
     The forward is compared before the training op rounds its scores to
     the compute dtype (the same cast on both sides): on the path's data
     scores reach |s| ~ 16, where one bf16 step is 0.125."""
-    from desire_tpu_torch.ops import ioc_fused, nll
+    from desire_tpu_torch.ops import ioc_fused, nll, scene_pool
+    counts = {name: sum(c[0] == name for c in calls)
+              for name in TRAINING_CALL_LAUNCHES}
+    counts["scene_pool_bwd"] = sum(c[0] == "scene_pool" and len(c[1]) == 3
+                                   for c in calls)
+    for name, kernels in TRAINING_CALL_LAUNCHES.items():
+        for k in kernels:
+            if launches[k] != counts[name]:
+                raise AssertionError(f"{launches[k]} launches of {k}, "
+                                     f"{counts[name]} recorded {name} calls")
+    if launches["scene_pool_bwd"] != counts["scene_pool_bwd"]:
+        raise AssertionError("a scene_pool_bwd launch without its recorded "
+                             "call")
     gen = torch.Generator(device="cpu").manual_seed(seed)
+    ioc_keys = (("refined", "refined"), ("scores", "scores"),
+                ("iters", "refined"))
     out = {}
     for name, a, kw in calls:
         row = out.setdefault(name, {"calls": 0, "fwd": 0.0, "bwd": 0.0})
+        if name == "ioc_refine_train" and not row["calls"]:
+            row.update(fwd={}, fwd32={})
         row["calls"] += 1
         if name == "ioc_refine_train":
             p_ioc, p_scf, *data = a
             traj, dec_h, fmap, live, fut = data
-            w = ioc_fused.pack_ioc(p_ioc, p_scf, dec_h.dtype, traj.device,
-                                   traj.shape[1])
             fwd = (traj.float().contiguous(), dec_h.contiguous(),
                    fmap.contiguous(), live.float().contiguous(),
                    fut.float().contiguous())
-            got = ioc_fused.ioc_refine_cuda(w, *fwd, collect_iters=True,
-                                            **kw)
-            ref = ioc_fused.ioc_refine_plain(p_ioc, p_scf, *fwd,
-                                             collect_iters=True, **kw)
-            exact = ioc_fused.ioc_refine_plain(
-                p_ioc, p_scf, fwd[0], fwd[1].float(), fwd[2].float(),
-                *fwd[3:], collect_iters=True, **kw)
-            noise = row.setdefault("noise", {})
-            for out_name, key, x, y, z in zip(
-                    ("refined", "scores", "iters"),
-                    ("refined", "scores", "refined"), got, ref, exact):
-                err, nz = check_bf16_noise(key, x, y, z)
-                row["fwd"] = max(row["fwd"], err)
-                noise[out_name] = max(noise.get(out_name, 0.0), nz)
-            del got, ref, exact
+            w = {cd: ioc_fused.pack_ioc(p_ioc, p_scf, cd, traj.device,
+                                        traj.shape[1])
+                 for cd in {dec_h.dtype, torch.float32}}
+            e16, e32, faults = check_ioc_path_call(
+                lambda *d: ioc_fused.ioc_refine_cuda(
+                    w[d[1].dtype], *d, collect_iters=True, **kw),
+                lambda *d: ioc_fused.ioc_refine_plain(
+                    p_ioc, p_scf, *d, collect_iters=True, **kw),
+                fwd, ioc_keys, plant=out.get("faults") is None)
+            for label in e16:
+                row["fwd"][label] = max(row["fwd"].get(label, 0.0),
+                                        e16[label])
+                row["fwd32"][label] = max(row["fwd32"].get(label, 0.0),
+                                          e32[label])
+            out["faults"] = out.get("faults") or faults
             params = {"ioc": p_ioc, "scf": p_scf}
             args = [x.clone().requires_grad_(i < 3)
                     for i, x in enumerate(data)]
@@ -1542,7 +1660,7 @@ def check_training_calls(calls, cfg, seed=0):
             row["bwd"] = max(row["bwd"], *(check_grads_bf16(
                 leaf, g_k[leaf], g_p[leaf], verbose=False) for leaf in g_p))
             del g_k, g_p
-        else:
+        elif name == "nll":
             raw5, target, mask = a
             got = nll.nll_fwd_cuda(raw5, target, mask)
             ref = nll.bivariate_nll_plain(raw5, target, mask)
@@ -1560,6 +1678,32 @@ def check_training_calls(calls, cfg, seed=0):
                                      "version")
             row["fwd"] = max(row["fwd"], errors(got, ref)[0])
             row["bwd"] = max(row["bwd"], errors(got_b, ref_b)[0])
+        else:
+            fm, pos, *g = a
+            bf = fm.dtype == torch.bfloat16
+            got = scene_pool.scene_pool_fwd_cuda(fm.contiguous(),
+                                                 pos.contiguous())
+            ref = scene_pool.bilinear_pool_plain(fm, pos)
+            if not (torch.equal(got, ref) if bf
+                    else torch.allclose(got, ref, **POOL_TOL)):
+                raise AssertionError("a recorded scene-pool forward call "
+                                     "disagrees with its plain version")
+            row["fwd"] = max(row["fwd"], errors(got, ref)[0])
+            if g:
+                g = g[0].to(fm.dtype).contiguous()
+                d_map, d_pos = scene_pool.scene_pool_bwd_cuda(
+                    fm.contiguous(), pos.contiguous(), g)
+                r_map, r_pos = scene_pool.bilinear_pool_plain_bwd(fm, pos, g)
+                if not (torch.allclose(d_map.float(), r_map.float(), **(
+                        POOL_BF16_TOL if bf else POOL_DMAP_TOL))
+                        and torch.allclose(d_pos, r_pos, **POOL_DPOS_TOL)):
+                    raise AssertionError("a recorded scene-pool gradient "
+                                         "call disagrees with its plain "
+                                         "version")
+                row["bwd"] = max(row["bwd"], errors(d_map, r_map)[0],
+                                 errors(d_pos, r_pos)[0])
+    if "ioc_refine_train" in out:
+        faults_planted(out)
     return out
 
 
@@ -2304,9 +2448,10 @@ def lane_rank(rank, meshes, inp, dev, say):
                                  log_fn=lambda mm, st: logged.append(mm),
                                  mesh=m)
         torch.cuda.synchronize()
-        for name, n in ops.LAUNCHES.items():
+        got = dict(ops.LAUNCHES)
+        for name, n in got.items():
             into[name] += n
-        checked = check_training_calls(calls, cfg, seed=rank)
+        checked = check_training_calls(calls, cfg, got, seed=rank)
         del calls
         flat = torch.cat([x.reshape(-1) for x in tree_leaves(state.params)])
         equal = bool(torch.equal(mesh_mod.broadcast(m, flat.clone()), flat))
@@ -2833,12 +2978,13 @@ def conv_phase(dev, smi, rng):
     params = make_params(cfg, dev, seed=22)
     with recorded_serving_calls() as calls:
         got = serve_requests(params, cfg, rng)
-    # the conv model's IOC inputs: the noise-aware bound, as phase 10's
-    # training calls (check_bf16_noise)
-    print(f"  every IOC call held against plain [calls, max abs error, the "
-          f"plain bf16 version's against float32]: "
-          f"{check_recorded_calls(calls, verbose=False, against_f32=True)}",
-          flush=True)
+    if len(calls) != got["ioc_refine"] + 1:   # and the warm-up's call
+        raise AssertionError(f"{got['ioc_refine']} IOC launches and the "
+                             f"warm-up's, {len(calls)} recorded calls")
+    # on the model's own inputs, as phase 10's training calls
+    print(f"  every IOC call held against plain [calls, max abs error bf16,"
+          f" float32]: "
+          f"{check_recorded_calls(calls, False, path=True)}", flush=True)
     del calls
     check_launches("3 conv requests", got, ("ioc_refine",), 3)
     check_not_launched("3 conv requests", got, ("sgm_sample",))
@@ -2850,12 +2996,16 @@ def conv_phase(dev, smi, rng):
     loader = SyntheticLoader(cfg, rng, 2)
     runs = {}
     for remat in (False, True):
-        logged, got, peak = epoch_run(flagship_cfg(vae_dec="conv",
-                                                   remat=remat),
-                                      params, loader, f"remat={remat}")
+        cfg_r = flagship_cfg(vae_dec="conv", remat=remat)
+        with recorded_training_calls() as calls:
+            logged, got, peak = epoch_run(cfg_r, params, loader,
+                                          f"remat={remat}")
         check_launches(f"conv, remat={remat}", got,
                        ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
                         "nll_bwd"), 2)
+        print(f"  remat={remat}: training calls held against plain "
+              f"{check_training_calls(calls, cfg_r, got)}", flush=True)
+        del calls
         add(got)
         runs[remat] = ([m["loss"] for m in logged], peak,
                        warm_step_ms(logged))
@@ -2879,12 +3029,15 @@ def conv_phase(dev, smi, rng):
     full = reference_traj(rng, t + 1, model.cfg.max_num_obj)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    losses = [model.train_step(full[:-1], full[1:]) for _ in range(3)]
+    with recorded_training_calls() as calls:
+        losses = [model.train_step(full[:-1], full[1:]) for _ in range(3)]
     train_ms = (time.perf_counter() - t0) * 1e3 / 3
     got = dict(ops.LAUNCHES)
     check_launches("DESIREModel.train_step", got,
                    ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd",
                     "nll_bwd"), 3)
+    train_checked = check_training_calls(calls, model.cfg, got)
+    del calls
     add(got)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"DESIREModel losses {losses}")
@@ -2895,7 +3048,10 @@ def conv_phase(dev, smi, rng):
     torch.cuda.synchronize()
     sample_ms = (time.perf_counter() - t0) * 1e3
     got = dict(ops.LAUNCHES)
-    checked = check_recorded_calls(calls, verbose=False, against_f32=True)
+    if len(calls) != got["sgm_sample"] + got["ioc_refine"]:
+        raise AssertionError("a sampler or IOC launch of the sample without "
+                             "its recorded call")
+    checked = check_recorded_calls(calls, verbose=False)
     del calls
     check_launches("DESIREModel.sample", got, ("sgm_sample", "ioc_refine"),
                    1)
@@ -2906,9 +3062,10 @@ def conv_phase(dev, smi, rng):
                              f"{want}) or non-finite values")
     np.testing.assert_array_equal(out[:t], full[:-1])
     print(f"  losses {losses}; a train_step {train_ms:.1f} ms, the sample "
-          f"{sample_ms:.1f} ms (host clock, the first calls included); "
-          f"sample {out.shape}, its kernel calls held against plain "
-          f"{checked}", flush=True)
+          f"{sample_ms:.1f} ms (host clock, the first calls included; the "
+          f"steps' recording too); the steps' kernel calls held against "
+          f"plain {train_checked}; sample {out.shape}, its kernel calls held "
+          f"against plain {checked}", flush=True)
     print(f"  phase 11 launches {launches}", flush=True)
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({smi})",
           flush=True)

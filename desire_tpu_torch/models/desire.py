@@ -81,7 +81,8 @@ def uses_fused_train_ioc(cfg: DesireConfig) -> bool:
 def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                    generator=None, k_samples=None, train=False,
                    kernel_weights=None, keep_x=None, keep_y=None,
-                   z_temp=None, scene_image=None, mesh=None):
+                   z_temp=None, scene_image=None, mesh=None,
+                   lane_mesh=None):
     """End-to-end forward. Returns a dict of the stage outputs.
 
     eps: optional latent noise (B*A, K, lat); keep_x / keep_y: optional
@@ -101,7 +102,12 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
     batch and eps (or a generator in the same state), computes its block
     of rows and lanes (:func:`_meshed_forward`) and returns the global
     outputs. Without one the forward is unsharded, whatever the config's
-    mesh_data and mesh_k."""
+    mesh_data and mesh_k.
+    lane_mesh: training (train=True) on rank (d, k) of a mesh whose k
+    divides K: xy, mask, ids and every draw are the rank's rows; the
+    sampler runs all K lanes of them, and the IOC its block of the lanes,
+    gathered to all K (``parallel.mesh.on_lanes``), so every output holds
+    all K lanes (:func:`desire_loss`)."""
     if mesh is not None and mesh.size > 1:
         if train:
             raise ValueError("the meshed forward is inference; desire_loss "
@@ -112,12 +118,15 @@ def desire_forward(params, cfg: DesireConfig, xy, mask, ids, *, eps=None,
                                    k_samples=k_samples,
                                    kernel_weights=kernel_weights,
                                    z_temp=z_temp, scene_image=scene_image)
+    if lane_mesh is not None and not train:
+        raise ValueError("lane_mesh is training's; the meshed inference "
+                         "forward takes mesh")
     with torch.inference_mode(not train):
         return _forward(params, cfg, xy, mask, ids, eps=eps,
                         generator=generator, k_samples=k_samples,
                         train=train, kernel_weights=kernel_weights,
                         keep_x=keep_x, keep_y=keep_y, z_temp=z_temp,
-                        scene_image=scene_image)
+                        scene_image=scene_image, lane_mesh=lane_mesh)
 
 
 # outputs of the meshed forward with lanes on dim 2, and with rows only
@@ -180,7 +189,10 @@ def _meshed_forward(params, cfg, mesh, xy, mask, ids, *, eps, generator,
 
 def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
              train, kernel_weights, keep_x, keep_y, z_temp, scene_image,
-             mesh=None):
+             mesh=None, lane_mesh=None):
+    """The forward on the given rows: under ``mesh`` (inference) on the
+    rank's lanes of every stage, under ``lane_mesh`` (training) on all K
+    lanes but the IOC's (:func:`desire_forward`)."""
     K = k_samples or cfg.num_samples
     xy = xy.float()
     mask = mask.float()
@@ -189,9 +201,6 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
     live = losses.agent_validity_mask(ids)
     n = b * a
     packed = kernel_weights or {}
-    # training under a mesh: the sampler runs all K lanes of the rank's
-    # rows and the IOC its lanes of them, gathered to all K (desire_loss)
-    lanes = train and mesh is not None and mesh.shape[1] > 1
     out = sgm_mod.sgm_forward(
         params["sgm"], cfg, obs_xy.reshape(n, *obs_xy.shape[2:]),
         obs_mask.reshape(n, -1),
@@ -201,7 +210,7 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
         keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"),
         z_temp=(None if z_temp is None
                 else z_temp.reshape(n, 1, 1).float()),
-        mesh=None if train else mesh)
+        mesh=mesh)
 
     K = out["traj_mu"].shape[1]     # the rank's lanes under a meshed forward
     tf_len = fut_xy.shape[2]
@@ -255,25 +264,23 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
             fut_mask.contiguous(), weights=packed.get("ioc"), **kw)
         per_iter = []
     elif train and uses_fused_train_ioc(cfg):
-        refine = (functools.partial(ops.ioc_refine_train_sharded, mesh)
-                  if lanes else ops.ioc_refine_train)
+        refine = (ops.ioc_refine_train if lane_mesh is None else
+                  functools.partial(ops.ioc_refine_train_sharded, lane_mesh))
         refined, scores, iters = refine(
             params["ioc"], params["scf"], traj, dec_h, feat_map, live,
             fut_mask, **kw)
         per_iter = list(iters.unbind(0))
-    elif lanes:
-        # layer by layer on the rank's lanes: every lane is independent
-        # (the social pool attends within a lane)
-        ln = mesh.lanes(K)
-        refined, scores, per_iter = ioc_mod.ioc_forward(
-            params["ioc"], params["scf"], cfg, traj[:, :, ln],
-            dec_h[:, :, ln], feat_map, live, fut_mask)
-        refined, scores, *per_iter = mesh_mod.gather_lanes(
-            mesh, [(x, 2) for x in [refined, scores, *per_iter]])
     else:
-        refined, scores, per_iter = ioc_mod.ioc_forward(
-            params["ioc"], params["scf"], cfg, traj, dec_h, feat_map, live,
-            fut_mask)
+        # layer by layer; every lane is independent (the social pool
+        # attends within a lane), so lane_mesh splits it
+        def refine(traj, dec_h):
+            refined, scores, per_iter = ioc_mod.ioc_forward(
+                params["ioc"], params["scf"], cfg, traj, dec_h, feat_map,
+                live, fut_mask)
+            return [refined, scores, *per_iter]
+        refined, scores, *per_iter = (
+            refine(traj, dec_h) if lane_mesh is None else mesh_mod.on_lanes(
+                lane_mesh, refine, traj, dec_h, [2] * (2 + kw["num_refine"])))
     result.update(refined_traj=refined, scores=scores,
                   per_iter_trajs=per_iter)
     return result
@@ -297,7 +304,7 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     the sampler, the scene CNN and every loss term run on all K lanes of
     the rank's rows, and the IOC on its block of the lanes, gathered to
     all K (``ops.ioc_refine_train_sharded``; layer by layer,
-    ``parallel.mesh.gather_lanes``): every ``k`` rank of a row computes
+    ``parallel.mesh.on_lanes``): every ``k`` rank of a row computes
     the same loss, and the IOC's share of its gradients is mk times its
     lanes' (``train.trainer`` sums over the mesh and divides by mk). Where
     K does not split over ``k``, every rank runs all the lanes.
@@ -328,12 +335,10 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     elif tuple(lane_u.shape) != (b, a, K):
         raise ValueError(f"lane_u must be {(b, a, K)}, got "
                          f"{tuple(lane_u.shape)}")
-    with torch.inference_mode(False):
-        out = _forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
-                       generator=generator, k_samples=K, train=True,
-                       kernel_weights=None, keep_x=nz.get("keep_x"),
-                       keep_y=nz.get("keep_y"), z_temp=None,
-                       scene_image=scene_image, mesh=lane_mesh)
+    out = desire_forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
+                         generator=generator, k_samples=K, train=True,
+                         keep_x=nz.get("keep_x"), keep_y=nz.get("keep_y"),
+                         scene_image=scene_image, lane_mesh=lane_mesh)
     fut_xy, fut_mask, live = out["fut_xy"], out["fut_mask"], out["live"]
     f32 = torch.float32
     # an agent must have at least one valid future step

@@ -277,7 +277,7 @@ def ioc_refine_train_sharded(mesh, p_ioc, p_scf, traj, dec_h, feat_map,
     mesh (port of ``make_trainable_fused_ioc_sharded``): the training
     forward and backward kernels (:func:`ioc_refine_train`) on the rank's
     (B/md, A, K/mk) block, its outputs gathered to the K lanes of its rows
-    (``parallel.mesh.gather_lanes``).
+    (``parallel.mesh.on_lanes``).
 
     traj (B/md, A, K, T, 2) and dec_h hold every lane of the rank's rows
     (the training sampler runs all of them); feat_map, live and fut_mask
@@ -291,10 +291,9 @@ def ioc_refine_train_sharded(mesh, p_ioc, p_scf, traj, dec_h, feat_map,
     over ``k`` inside its backward."""
     check_rows(traj, feat_map=feat_map, live=live, fut_mask=fut_mask,
                dec_h=dec_h)
-    ln = mesh.lanes(traj.shape[2])
-    refined, scores, iters = ioc_refine_train(
-        p_ioc, p_scf, traj[:, :, ln], dec_h[:, :, ln], feat_map, live,
-        fut_mask, num_refine=num_refine, delta_scale=delta_scale,
-        social_freeze=social_freeze)
-    return tuple(mesh_mod.gather_lanes(mesh, [(refined, 2), (scores, 2),
-                                              (iters, 3)]))
+    def refine(traj, dec_h):
+        return ioc_refine_train(
+            p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask,
+            num_refine=num_refine, delta_scale=delta_scale,
+            social_freeze=social_freeze)
+    return tuple(mesh_mod.on_lanes(mesh, refine, traj, dec_h, (2, 2, 3)))

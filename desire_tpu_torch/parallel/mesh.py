@@ -184,6 +184,21 @@ def all_sum(mesh: Mesh, x: torch.Tensor, axis=DATA_AXIS) -> torch.Tensor:
     return wide.to(x.dtype)
 
 
+def _sum_gather(mesh: Mesh, axis, pieces) -> list:
+    """Place each block at its index of a zero-filled float32 buffer of its
+    global shape and sum the buffers over ``axis``, in one all-reduce:
+    exact, since every element has one writer. pieces: (block, global
+    shape, index) triples. Returns the global tensors, float32 views of
+    one buffer."""
+    sizes = [math.prod(shape) for _, shape, _ in pieces]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=mesh.device)
+    for seg, (block, shape, idx) in zip(flat.split(sizes), pieces):
+        seg.view(shape)[idx] = block
+    dist.all_reduce(flat, group=mesh.groups[axis])
+    return [seg.view(shape)
+            for seg, (_, shape, _) in zip(flat.split(sizes), pieces)]
+
+
 def assemble(mesh: Mesh, blocks, lane_dim: int | None = None) -> list:
     """Gather blocks into their global tensors on every rank, in one
     all-reduce. blocks: (block, global shape) pairs, this rank's rows on
@@ -193,43 +208,35 @@ def assemble(mesh: Mesh, blocks, lane_dim: int | None = None) -> list:
     axis = DATA_AXIS if lane_dim is None else MESH
     if _axis_size(mesh, axis) == 1:
         return [b for b, _ in blocks]
-    sizes = [math.prod(shape) for _, shape in blocks]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=mesh.device)
-    for seg, (block, shape) in zip(flat.split(sizes), blocks):
+    pieces = []
+    for block, shape in blocks:
         idx = [mesh.rows(shape[0])]
         if lane_dim is not None:
             idx += [slice(None)] * (lane_dim - 1) + [mesh.lanes(
                 shape[lane_dim])]
-        seg.view(shape)[tuple(idx)] = block
-    dist.all_reduce(flat, group=mesh.groups[axis])
-    return [seg.view(shape).to(block.dtype)
-            for seg, (block, shape) in zip(flat.split(sizes), blocks)]
+        pieces.append((block, shape, tuple(idx)))
+    return [x.to(block.dtype) for x, (block, _) in
+            zip(_sum_gather(mesh, axis, pieces), blocks)]
 
 
 class _LaneGather(torch.autograd.Function):
     """Forward: the rank's lane blocks gathered to their K lanes over the
-    ``k`` group, in one all-reduce of a zero-filled float32 buffer.
-    Backward: mk times the rank's own lanes of each upstream gradient."""
+    ``k`` group (:func:`_sum_gather`). Backward: mk times the rank's own
+    lanes of each upstream gradient."""
 
     @staticmethod
     def forward(ctx, mesh, dims, *blocks):
         mk = mesh.shape[1]
         ctx.mesh, ctx.dims = mesh, dims
         ctx.widths = [x.shape[d] for x, d in zip(blocks, dims)]
-        shapes = []
+        pieces = []
         for x, d in zip(blocks, dims):
-            s = list(x.shape)
-            s[d] *= mk
-            shapes.append(s)
-        sizes = [math.prod(s) for s in shapes]
-        flat = torch.zeros(sum(sizes), dtype=torch.float32,
-                           device=blocks[0].device)
-        for seg, x, s, d in zip(flat.split(sizes), blocks, shapes, dims):
-            ln = mesh.lanes(s[d])
-            seg.view(s).narrow(d, ln.start, ln.stop - ln.start).copy_(x)
-        dist.all_reduce(flat, group=mesh.groups[K_AXIS])
-        return tuple(seg.view(s).to(x.dtype, copy=True)
-                     for seg, x, s in zip(flat.split(sizes), blocks, shapes))
+            shape = list(x.shape)
+            shape[d] *= mk
+            idx = (slice(None),) * d + (mesh.lanes(shape[d]),)
+            pieces.append((x, shape, idx))
+        return tuple(y.to(x.dtype, copy=True) for y, x in
+                     zip(_sum_gather(mesh, K_AXIS, pieces), blocks))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -266,6 +273,17 @@ def gather_lanes(mesh: Mesh, blocks) -> list:
         return [b for b, _ in blocks]
     return list(_LaneGather.apply(mesh, tuple(d for _, d in blocks),
                                   *(b for b, _ in blocks)))
+
+
+def on_lanes(mesh: Mesh, fn, traj: torch.Tensor, dec_h: torch.Tensor,
+             dims) -> list:
+    """fn(traj, dec_h) on the rank's lanes of both (dim 2, ``mesh.lanes``),
+    its outputs gathered to all K lanes (:func:`gather_lanes`). fn returns
+    a sequence of tensors whose lane dims are ``dims``, one each; its other
+    inputs must be per lane independent of the lanes it is not given."""
+    ln = mesh.lanes(traj.shape[2])
+    outs = fn(traj[:, :, ln], dec_h[:, :, ln])
+    return gather_lanes(mesh, list(zip(outs, dims)))
 
 
 def broadcast(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
