@@ -95,8 +95,18 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    card: 3 ``train_step`` calls at the reference layout and one
    ``sample(num=12)`` (its kernel calls held against plain, the output's
    shape and finiteness);
-12. prints one JSON line of per-kernel results (launches of phases 4, 6,
-   7, 9, 10 and 11), then, last, the device line.
+12. the headline bench and the constant-velocity baseline: ``python -m
+   desire_tpu_torch.bench`` in a process of its own (exit 0, one line
+   with its keys, finite values, value = B*A*K / fwd_ms, MFU in (0, 1]);
+   ``bench``, ``bench_train`` and ``breakdown`` in this one at fewer calls,
+   which must launch the sampler, IOC refine, IOC training forward and
+   backward and NLL kernels; one forward of each of the stage sweep's
+   sgm_only, sgm_scf (one refine pass), full_K12 and full_K50 with every
+   kernel call held against its plain version; ``model_flops`` the same on
+   the card and on the CPU; ``python -m desire_tpu_torch.baseline_cv`` on
+   phase 8's tree, in this process and in its own, the same line;
+13. prints one JSON line of per-kernel results (launches of phases 4, 6,
+   7, 9, 10, 11 and 12), then, last, the device line.
 
 Any failure raises, and the script exits non-zero without the device line.
 It also exits non-zero when no CUDA device is visible.
@@ -108,9 +118,11 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -156,12 +168,10 @@ def nvidia_smi_line():
 
 
 def flagship_cfg(**kw):
-    from desire_tpu_torch import DesireConfig
-    base = dict(batch_size=64, max_num_obj=60, obs_len=8, pred_len=12,
-                num_samples=20, d_dim=48, latent_size=128,
-                compute_dtype="bfloat16", num_refine=4)
-    base.update(kw)
-    return DesireConfig(**base)
+    """The bench's flagship configuration (bench.flagship_cfg, social_freeze
+    off whatever the environment says) with kw's overrides."""
+    from desire_tpu_torch import bench
+    return bench.flagship_cfg().replace(**{"social_freeze": False, **kw})
 
 
 def small_cfg(**kw):
@@ -187,8 +197,9 @@ def make_params(cfg, device, seed=0):
         return s * torch.randn(t.shape, generator=g)
     p["sgm"]["prior"]["w"] = rnd(p["sgm"]["prior"]["w"], 0.1)
     p["sgm"]["ztemp_fc2"]["w"] = rnd(p["sgm"]["ztemp_fc2"]["w"], 0.3)
-    p["ioc"]["delta"]["w"] = rnd(p["ioc"]["delta"]["w"], 0.3)
-    p["ioc"]["gate"]["w"] = rnd(p["ioc"]["gate"]["w"], 0.3)
+    if "ioc" in p:                                 # cfg.use_ioc
+        p["ioc"]["delta"]["w"] = rnd(p["ioc"]["delta"]["w"], 0.3)
+        p["ioc"]["gate"]["w"] = rnd(p["ioc"]["gate"]["w"], 0.3)
     return to_device(p, device)
 
 
@@ -261,42 +272,18 @@ def check_bf16(name, got, ref, verbose=True, tol=BF16_TOL):
 
 
 def time_ms(fn, repeats=5, iters=3):
-    """Median over repeats of the mean per-call time in ms of iters calls,
-    by CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    """Median over repeats of the mean per-call time in ms of iters calls
+    in a row, by CUDA events, after one warm-up call (bench.timed_ms)."""
+    from desire_tpu_torch import bench
+    return statistics.median(bench.timed_ms(fn, repeats, 1, "cuda",
+                                            group=iters))
 
 
 def device_ms_by_kernel(fn, calls=5):
-    """{kernel name: device ms per call of fn} over `calls` calls (after one
-    warm-up call), by torch.profiler; names shortened to the kernel's own
-    (``scene_pool_dpos_kernel`` of its mangled template name)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        m = re.search(r"[a-z_]+_kernel", e.key)
-        name = m.group(0) if m else e.key[:40]
-        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
-    return out
+    """{kernel name: device ms per call of fn} over `calls` calls after one
+    warm-up call (bench.device_time)."""
+    from desire_tpu_torch import bench
+    return bench.device_time(fn, "cuda", calls, warmup=1)[0]
 
 
 @contextlib.contextmanager
@@ -1406,8 +1393,9 @@ def check_recorded_calls(calls, verbose=True, path=False):
     calls are on the model's own inputs (phase 11), held by
     check_ioc_path_call, the first with a live agent also planting faults.
     Returns {kernel name: [calls checked, max abs error]} (on a path, the
-    IOC's [calls, bf16 max abs error, float32 max abs error]), and under
-    "faults" the planted faults' errors."""
+    IOC's [calls, {output: bf16 max abs error}, {output: float32 max abs
+    error}]), and under "faults" the planted faults' errors (the faults of
+    ioc_faults_caught and the refine passes skipped)."""
     from desire_tpu_torch.ops import ioc_fused, sgm_fused
     out = {}
     for name, a, kw, got in calls:
@@ -1423,16 +1411,19 @@ def check_recorded_calls(calls, verbose=True, path=False):
             for key, x, y in zip(("refined", "scores"), got, ref):
                 row[1] = max(row[1], check_bf16(key, x, y, verbose))
         else:
-            row, ref = out.setdefault(name, [0, 0.0, 0.0]), None
+            row, ref = out.setdefault(name, [0, {}, {}]), None
             p_ioc, p_scf, *data = a
             e16, e32, faults = check_ioc_path_call(
                 lambda *d: ioc_fused.ioc_refine(p_ioc, p_scf, *d, **kw),
                 lambda *d: ioc_fused.ioc_refine_plain(p_ioc, p_scf, *d,
                                                       **kw),
                 data, (("refined", "refined"), ("scores", "scores")),
-                plant=out.get("faults") is None, got=got)
-            row[1] = max(row[1], *e16.values())
-            row[2] = max(row[2], *e32.values())
+                plant=out.get("faults") is None, got=got,
+                skipped=lambda *d: ioc_fused.ioc_refine(
+                    p_ioc, p_scf, *d, **dict(kw, num_refine=0)))
+            for errs, e in ((row[1], e16), (row[2], e32)):
+                for key, x in e.items():
+                    errs[key] = max(errs.get(key, 0.0), x)
             out["faults"] = out.get("faults") or faults
         row[0] += 1
         del ref
@@ -1466,7 +1457,8 @@ def f32_path_errors(got, ref, keys):
     return errs, ok
 
 
-def check_ioc_path_call(kernel, plain, data, keys, plant, got=None):
+def check_ioc_path_call(kernel, plain, data, keys, plant, got=None,
+                        skipped=None):
     """Hold one bf16 IOC kernel call on the model's own inputs (phases
     10-11) against its plain version, two ways: its bf16 outputs within
     PATH_BF16_TOL (max) and BF16_MEAN_TOL (mean); and the kernel run in
@@ -1476,8 +1468,9 @@ def check_ioc_path_call(kernel, plain, data, keys, plant, got=None):
     compute in dec_h's dtype; data = (traj, dec_h, feat_map, live,
     fut_mask); keys: each output's (name, PATH_BF16_TOL entry); got: the
     bf16 kernel's outputs if already computed. With plant, also the planted
-    faults (ioc_faults_caught). Returns ({name: bf16 max abs error},
-    {name: float32 max abs error}, the faults' errors or None)."""
+    faults (ioc_faults_caught; skipped as there). Returns ({name: bf16 max
+    abs error}, {name: float32 max abs error}, the faults' errors or
+    None)."""
     wide = widen(data)
     ref, ref32 = plain(*data), plain(*wide)
     e16 = {label: check_bf16(key, x, y, verbose=False, tol=PATH_BF16_TOL)
@@ -1486,18 +1479,20 @@ def check_ioc_path_call(kernel, plain, data, keys, plant, got=None):
     if not ok:
         raise AssertionError(f"the float32 IOC kernel on the path's inputs "
                              f"disagrees with its plain version: {e32}")
-    faults = (ioc_faults_caught(kernel, data, ref, ref32, keys) if plant
-              else None)
+    faults = (ioc_faults_caught(kernel, data, ref, ref32, keys, skipped)
+              if plant else None)
     return e16, e32, faults
 
 
-def ioc_faults_caught(kernel, data, ref, ref32, keys):
+def ioc_faults_caught(kernel, data, ref, ref32, keys, skipped=None):
     """Planted faults that check_ioc_path_call must reject: the kernel on
     inputs with the fault, in bf16 and in float32, against the sound plain
     outputs ref and ref32 (keys as there). The faults: the positions read
     at bf16 (a lower-precision control), the scene map one cell off (an
-    index fault of the pooling) and one lane's last hidden state lost (a
-    missed load). Raises unless each fault moves some bf16 output past its
+    index fault of the pooling), one lane's last hidden state lost (a
+    missed load) and, where skipped is given (the kernel with num_refine=0
+    on the sound inputs), the refine passes skipped, so that only the
+    re-score runs. Raises unless each fault moves some bf16 output past its
     PATH_BF16_TOL or BF16_MEAN_TOL, or some float32 output past phase 6's
     float32 tolerance. Returns {fault: {"bf16": max abs error by output,
     "float32": the same, "caught": by which}}, or None where no agent is
@@ -1508,21 +1503,22 @@ def ioc_faults_caught(kernel, data, ref, ref32, keys):
     b0, a0 = (live > 0).nonzero()[0].tolist()
     lost = dec_h.clone()
     lost[b0, a0, 0, -1] = 0
-    faults = {"positions at bf16": (traj.bfloat16().float(), dec_h, fmap,
-                                    live, fut),
-              "scene map one cell off": (traj, dec_h,
-                                         fmap.roll(1, 2).contiguous(), live,
-                                         fut),
-              "a lane's last hidden state lost": (traj, lost, fmap, live,
-                                                  fut)}
+    faults = {"positions at bf16": (kernel, (traj.bfloat16().float(),
+                                             dec_h, fmap, live, fut)),
+              "scene map one cell off": (kernel, (
+                  traj, dec_h, fmap.roll(1, 2).contiguous(), live, fut)),
+              "a lane's last hidden state lost": (kernel, (
+                  traj, lost, fmap, live, fut))}
+    if skipped is not None:
+        faults["the refine passes skipped"] = (skipped, data)
     out = {}
-    for fault, inputs in faults.items():
+    for fault, (fn, inputs) in faults.items():
         e16, by_bf16 = {}, False
-        for (label, key), x, y in zip(keys, kernel(*inputs), ref):
+        for (label, key), x, y in zip(keys, fn(*inputs), ref):
             mx, mean = errors(x, y)
             e16[label] = mx
             by_bf16 |= mx > PATH_BF16_TOL[key] or mean > BF16_MEAN_TOL[key]
-        e32, ok = f32_path_errors(kernel(*widen(inputs)), ref32, keys)
+        e32, ok = f32_path_errors(fn(*widen(inputs)), ref32, keys)
         caught = [w for w, c in (("bf16", by_bf16), ("float32", not ok)) if c]
         if not caught:
             raise AssertionError(f"the planted fault '{fault}' passes the "
@@ -1755,14 +1751,14 @@ def resume_check(data_dir, tmp):
                                  "uninterrupted one")
 
 
-def entry_point_phase(dev, smi, rng):
+def entry_point_phase(dev, smi, rng, tmp):
     """Phase 8: the port's training entry point (train.run.train) on a
     synthetic SDD tree at the flagship width: train, checkpoint, evaluate
     on the held-out split, keep and re-select the best checkpoint, fit the
-    rank blend, resume bit for bit, serve the best checkpoint."""
+    rank blend, resume bit for bit, serve the best checkpoint. tmp: the
+    phase's directory (the caller removes it): the tree in tmp/data, the
+    index cache in tmp/cache."""
     import dataclasses
-    import shutil
-    import tempfile
     from desire_tpu_torch import ops
     from desire_tpu_torch.data import loader as loader_mod
     from desire_tpu_torch.data.native import build as native_build
@@ -1776,7 +1772,6 @@ def entry_point_phase(dev, smi, rng):
                                                 make_eval_forward)
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="desire_entry_")
     old_cache = os.environ.get("DESIRE_TORCH_CACHE_DIR")
     os.environ["DESIRE_TORCH_CACHE_DIR"] = os.path.join(tmp, "cache")
     try:
@@ -1981,7 +1976,6 @@ def entry_point_phase(dev, smi, rng):
             os.environ.pop("DESIRE_TORCH_CACHE_DIR", None)
         else:
             os.environ["DESIRE_TORCH_CACHE_DIR"] = old_cache
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # the keys of the JAX package's evaluate.py result line at phase 9's flags
@@ -2642,7 +2636,6 @@ def mesh_phase(dev, smi, rng):
     and shows that a one-rank NCCL group initialises and all-reduces.
     Returns the ranks' launches (the meshed forwards and training steps;
     those of the social_freeze steps apart)."""
-    import tempfile
     import torch.distributed as dist
     from desire_tpu_torch.models.desire import (desire_forward,
                                                 pack_kernel_weights)
@@ -2982,8 +2975,8 @@ def conv_phase(dev, smi, rng):
         raise AssertionError(f"{got['ioc_refine']} IOC launches and the "
                              f"warm-up's, {len(calls)} recorded calls")
     # on the model's own inputs, as phase 10's training calls
-    print(f"  every IOC call held against plain [calls, max abs error bf16,"
-          f" float32]: "
+    print(f"  every IOC call held against plain [calls, max abs error by "
+          f"output bf16, float32]: "
           f"{check_recorded_calls(calls, False, path=True)}", flush=True)
     del calls
     check_launches("3 conv requests", got, ("ioc_refine",), 3)
@@ -3068,6 +3061,182 @@ def conv_phase(dev, smi, rng):
           f"against plain {checked}", flush=True)
     print(f"  phase 11 launches {launches}", flush=True)
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return launches
+
+
+# -- 12. the headline bench and the constant-velocity baseline ----------------
+# the keys of ``python -m desire_tpu_torch.bench``'s line: bench.py's but
+# its TPU and XLA tooling's, and the port's own
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "fwd_ms",
+                   "fwd_ms_p90", "train_steps_per_sec_K20", "train_step_ms",
+                   "mfu_fwd", "mfu_train", "train_busy_ms", "train_peak_gib",
+                   "device"}
+# the stage sweep's variants whose kernel calls are held against plain
+# (the configurations no other phase runs: the sampler without SCF and
+# IOC, one refine pass, K = 12 and K = 50 at B = 64)
+BENCH_HELD_VARIANTS = ("sgm_only", "sgm_scf", "full_K12", "full_K50")
+
+
+def check_bench_numbers(label, rec, keys, mfu_keys):
+    """Each of keys a finite number > 0; each of mfu_keys in (0, 1]."""
+    for k in keys:
+        if not (isinstance(rec[k], (int, float)) and np.isfinite(rec[k])
+                and rec[k] > 0):
+            raise AssertionError(f"{label}: {k} = {rec[k]!r}")
+    for k in mfu_keys:
+        if not (isinstance(rec[k], float) and 0.0 < rec[k] <= 1.0):
+            raise AssertionError(f"{label}: {k} = {rec[k]!r}, want (0, 1]")
+
+
+def bench_phase(dev, smi, tmp):
+    """Phase 12: (a) ``python -m desire_tpu_torch.bench`` in a process of
+    its own (exit 0, one line, its keys, finite values, value = B*A*K /
+    fwd_ms, mfu in (0, 1], the card's nvidia-smi line); (b) ``bench``,
+    ``bench_train`` and ``breakdown`` in this process at fewer calls, which
+    must launch the sampler, IOC refine, IOC training forward and backward
+    and NLL kernels; (c) one forward of each of BENCH_HELD_VARIANTS, on
+    make_params's parameters, with every kernel call recorded and held
+    against plain (IOC calls by check_ioc_path_call: bf16 and float32, the
+    refined positions and the scores each, planted faults, the refine
+    passes skipped among them); (d)
+    ``model_flops`` of a small configuration the same on the card and on
+    the CPU, launching no kernel; (e) ``python -m
+    desire_tpu_torch.baseline_cv`` on phase 8's tree (tmp/data, its index
+    cache tmp/cache), in this process and in its own, the same line.
+    Returns the kernels' launches in (b)."""
+    import io
+    from unittest import mock
+    from desire_tpu_torch import baseline_cv, bench, ops
+
+    print(f"phase 12: the headline bench and the constant-velocity "
+          f"baseline ({smi})", flush=True)
+    t_phase = time.perf_counter()
+    env = dict(os.environ, DESIRE_TORCH_CACHE_DIR=os.path.join(tmp, "cache"))
+
+    # -- 12a. the bench's own process ----------------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "desire_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    bench_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"python -m desire_tpu_torch.bench exited with "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines")
+    rec = json.loads(lines[0])
+    if set(rec) != BENCH_LINE_KEYS:
+        raise AssertionError(f"the bench's keys {sorted(rec)}")
+    check_bench_numbers("the bench's line", rec,
+                        ("value", "fwd_ms", "fwd_ms_p90",
+                         "train_steps_per_sec_K20", "train_step_ms",
+                         "train_busy_ms", "train_peak_gib"),
+                        ("mfu_fwd", "mfu_train"))
+    cfg = bench.flagship_cfg()
+    want = cfg.batch_size * cfg.max_num_obj * cfg.num_samples / (
+        rec["fwd_ms"] / 1e3)
+    if abs(rec["value"] - want) > 1e-4 * want or rec["vs_baseline"] is not \
+            None or rec["device"] != smi or rec["fwd_ms_p90"] < rec["fwd_ms"]:
+        raise AssertionError(f"the bench's line {rec}: value (want "
+                             f"{want:.1f}), vs_baseline, device or p90")
+    print(f"  python -m desire_tpu_torch.bench ({bench_s:.1f} s): "
+          f"{lines[0]}", flush=True)
+
+    # -- 12b. bench, bench_train and breakdown in this process ---------------
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    fwd = bench.bench(iters=5, warmup=1, device=dev)
+    train = bench.bench_train(iters=3, warmup=1, device=dev)
+    rows = bench.breakdown(iters=3, warmup=1, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check_launches("phase 12b", launches, ("sgm_sample", "ioc_refine",
+                                           "ioc_refine_train",
+                                           "ioc_refine_bwd", "nll_fwd",
+                                           "nll_bwd"), 1)
+    check_bench_numbers("bench", fwd, ("traj_per_sec", "fwd_ms", "gflops"),
+                        ("mfu_fwd",))
+    check_bench_numbers("bench_train", train,
+                        ("train_step_ms", "train_busy_ms", "train_peak_gib"),
+                        ("mfu_train",))
+    if [r["variant"] for r in rows] != [n for n, _ in bench.VARIANTS]:
+        raise AssertionError(f"the breakdown's rows {rows}")
+    for r in rows:
+        check_bench_numbers(f"breakdown {r['variant']}", r,
+                            ("ms", "traj_per_sec", "gflops"), ("mfu",))
+    print(f"  bench {fwd}; bench_train {train}; launches {launches}",
+          flush=True)
+
+    # -- 12c. the sweep's new configurations' kernel calls against plain ------
+    for name, vcfg in bench.variant_cfgs():
+        if name not in BENCH_HELD_VARIANTS:
+            continue
+        # make_params: with the init's zero delta and gate heads a refine
+        # pass would leave the positions as they were
+        forward = bench.forward_fn(vcfg, dev,
+                                   params=make_params(vcfg, dev, seed=12))
+        with recorded_serving_calls() as calls:
+            res = forward()
+        torch.cuda.synchronize()
+        want = ["sgm_sample"] + (["ioc_refine"] if vcfg.use_ioc else [])
+        if sorted(c[0] for c in calls) != sorted(want):
+            raise AssertionError(f"{name}: the forward called "
+                                 f"{[c[0] for c in calls]} (want {want})")
+        b, a, k = vcfg.batch_size, vcfg.max_num_obj, vcfg.num_samples
+        shape = (b, a, k, vcfg.pred_len, 2)
+        if tuple(res["refined_traj"].shape) != shape or not bool(
+                torch.isfinite(res["refined_traj"]).all()) or (
+                vcfg.use_ioc and not bool(torch.isfinite(
+                    res["scores"]).all())):
+            raise AssertionError(f"{name}: refined_traj "
+                                 f"{tuple(res['refined_traj'].shape)} "
+                                 f"(want {shape}) or not finite")
+        held = check_recorded_calls(calls, verbose=False, path=True)
+        faults = {f: [v["caught"], v["bf16"]]
+                  for f, v in (held.pop("faults", None) or {}).items()}
+        print(f"  {name} (B={b}, K={k}, num_refine={vcfg.num_refine}, "
+              f"use_ioc={vcfg.use_ioc}): kernel calls against plain "
+              f"{held}; planted faults caught [by, bf16 max abs error] "
+              f"{faults}", flush=True)
+        del calls, res, forward
+
+    # -- 12d. the FLOP count: the same on the card and the CPU ---------------
+    scfg = small_cfg()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = [bench.model_flops(scfg, train, dev) for train in (False, True)]
+    torch.cuda.synchronize()
+    check_not_launched("model_flops", dict(ops.LAUNCHES), ops.LAUNCHES)
+    cpu = [bench.model_flops(scfg, train, "cpu") for train in (False, True)]
+    if card != cpu or min(card) <= 0:
+        raise AssertionError(f"model_flops on the card {card}, on the CPU "
+                             f"{cpu}")
+    print(f"  model_flops of the small configuration, forward and step: "
+          f"{card} on the card and on the CPU", flush=True)
+
+    # -- 12e. the constant-velocity baseline on phase 8's tree ----------------
+    argv = ["--data_dir", os.path.join(tmp, "data"), "--subsample", "12",
+            "--eval_hop", "4", "--holdout", "video", "--batch_size", "64",
+            "--max_num_obj", "60", "--speed_bins", "5,15"]
+    buf = io.StringIO()
+    with mock.patch.dict(os.environ, env), contextlib.redirect_stdout(buf):
+        res = baseline_cv.main(argv)
+    out = subprocess.run([sys.executable, "-m", "desire_tpu_torch.baseline_cv",
+                          *argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"baseline_cv exited with {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    if out.stdout != buf.getvalue() or res["num_agents"] <= 0 or not all(
+            np.isfinite([res["ADE_px"], res["FDE_px"]])):
+        raise AssertionError(f"baseline_cv: in process {buf.getvalue()!r}, "
+                             f"in its own {out.stdout!r}")
+    print(f"  baseline_cv on phase 8's held-out split, in this process and "
+          f"in its own: {out.stdout.strip()}", flush=True)
+    print(f"  phase 12 launches {launches}", flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({smi})",
           flush=True)
     return launches
 
@@ -3230,25 +3399,34 @@ def main():
     # -- 7. the layer-by-layer IOC path -----------------------------------------
     kernels += unfused_phase(dev, smi, rng, params)
 
-    # -- 8. the training entry point, 9. evaluation and forecasting ------------
-    forecast_launches = entry_point_phase(dev, smi, rng)
+    # phase 8's tree stays for phase 12's baseline
+    tmp = tempfile.mkdtemp(prefix="desire_entry_")
+    try:
+        # -- 8. the training entry point, 9. evaluation and forecasting -------
+        forecast_launches = entry_point_phase(dev, smi, rng, tmp)
 
-    # -- 10. the mesh on one card -------------------------------------------------
-    mesh_launches, mesh_launches_fz = mesh_phase(dev, smi, rng)
+        # -- 10. the mesh on one card -----------------------------------------
+        mesh_launches, mesh_launches_fz = mesh_phase(dev, smi, rng)
 
-    # -- 11. the deconv mask decoder, the reference facade -------------------------
-    conv_launches = conv_phase(dev, smi, rng)
+        # -- 11. the deconv mask decoder, the reference facade ----------------
+        conv_launches = conv_phase(dev, smi, rng)
+
+        # -- 12. the headline bench, the constant-velocity baseline -----------
+        bench_launches = bench_phase(dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for row in kernels:
         # the social_freeze backward's row counts the social_freeze steps'
         name = row["name"]
-        for extra in (forecast_launches, mesh_launches, conv_launches):
+        for extra in (forecast_launches, mesh_launches, conv_launches,
+                      bench_launches):
             row["launches"] += extra.get(name, 0)
         if name == "ioc_refine_bwd_social_freeze":
             row["launches"] += mesh_launches_fz["ioc_refine_bwd"]
         elif name != "ioc_refine_bwd":
             row["launches"] += mesh_launches_fz.get(name, 0)
 
-    # -- 12. results ------------------------------------------------------------
+    # -- 13. results ------------------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

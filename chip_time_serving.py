@@ -38,6 +38,7 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import chip_smoke as cs
+    from desire_tpu_torch import bench
     from desire_tpu_torch.models.desire import (desire_forward,
                                                 pack_kernel_weights)
     from desire_tpu_torch.models.ioc import _DELTA_SCALE
@@ -83,21 +84,10 @@ def main():
     # where a forward's device time goes, and the share of it the card
     # idles: torch.profiler's device time by kernel over 3 forwards, against
     # their CUDA-event time
-    from torch.profiler import ProfilerActivity, profile
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(3):
-            desire_forward(params, cfg, bx, bm, bids, generator=gen,
-                           kernel_weights=packed)
-        end.record()
-        end.synchronize()
-    wall = start.elapsed_time(end) / 3
-    by_name = sorted(((e.self_device_time_total / 3e3, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     reverse=True)
+    split, wall = bench.device_time(
+        lambda: desire_forward(params, cfg, bx, bm, bids, generator=gen,
+                               kernel_weights=packed), "cuda", calls=3)
+    by_name = sorted(((t, k) for k, t in split.items()), reverse=True)
     busy = sum(t for t, _ in by_name)
     print(f"{tag}: forward device busy ms {busy:.3f} of {wall:.3f} (idle "
           f"share {1 - busy / wall:.3f}); by kernel: "

@@ -38,24 +38,6 @@ import torch
 WARMUP = 3  # untimed steps of each configuration before any step is timed
 
 
-def busy_ms(fn, calls=3):
-    """(card busy ms, CUDA-event ms) per call of fn, over `calls` calls:
-    torch.profiler's device time of every kernel and copy against the
-    events' span."""
-    from torch.profiler import ProfilerActivity, profile
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / calls, start.elapsed_time(end) / calls
-
-
 def time_ioc_bwd(cs, tag, cfg, params, rng, dev):
     """The IOC backward kernel alone, default and social_freeze, on the
     training forward's own outputs."""
@@ -151,8 +133,10 @@ def time_steps(cs, tag, cfg, params, rng, dev):
         print(f"{tag}: {name} ms {ms:.3f}", flush=True)
         cs.step_split(f"{tag}: {name}", c, params, batch, ms)
     # the card's busy time varies far less between runs than the step's
+    from desire_tpu_torch import bench
     for name, _, step in runs:
-        busy, wall = busy_ms(step)
+        split, wall = bench.device_time(step, "cuda", calls=3)
+        busy = sum(split.values())
         print(f"{tag}: {name} device busy ms {busy:.3f} of {wall:.3f} (idle "
               f"share {1 - busy / wall:.3f})", flush=True)
 

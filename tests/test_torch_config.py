@@ -93,8 +93,9 @@ def test_flags_match():
 def test_port_imports_no_jax():
     """In a fresh interpreter: desire_tpu_torch, all its submodules (the
     data loader, the eval harness, the checkpoint, the parallel mesh, the
-    training, evaluation and forecasting entry points and the serving bench
-    by name, the reference facade and the toy example),
+    training, evaluation and forecasting entry points, the serving bench,
+    the headline bench and the constant-velocity baseline by name, the
+    reference facade and the toy example),
     chip_smoke, chip_time_training and chip_time_serving, and then neither
     jax nor desire_tpu is loaded."""
     code = """
@@ -108,6 +109,8 @@ import desire_tpu_torch.train.run
 import desire_tpu_torch.evaluate
 import desire_tpu_torch.predict
 import desire_tpu_torch.bench_serve
+import desire_tpu_torch.bench
+import desire_tpu_torch.baseline_cv
 import desire_tpu_torch.compat
 import desire_tpu_torch.examples.toy_gaussian
 for m in pkgutil.walk_packages(desire_tpu_torch.__path__, "desire_tpu_torch."):

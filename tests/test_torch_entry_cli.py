@@ -6,7 +6,7 @@ training entry point (an imagery model: its raster reaches every path):
 the calibration fit), ``python -m desire_tpu_torch.predict`` in file and
 stream mode (tests/test_serve.py's CLI tests, mirrored),
 ``python -m desire_tpu_torch.bench_serve``, and no fallback to the CPU
-without a card."""
+without a card (``python -m desire_tpu_torch.bench`` too)."""
 
 import io
 import json
@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from desire_tpu_torch import bench_serve, evaluate, predict
+from desire_tpu_torch import bench, bench_serve, evaluate, predict
 from desire_tpu_torch.params import init_desire, to_numpy
 from desire_tpu_torch.train import run
 
@@ -269,3 +269,5 @@ def test_entry_points_without_a_card_raise(trained, caches, monkeypatch):
                       trained["csvs"][0]])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_serve.main(["--random_params", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main([])
