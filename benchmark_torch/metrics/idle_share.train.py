@@ -1,0 +1,7 @@
+"""The share of the traced training window in which no operation ran on
+the card, in %."""
+
+
+def read(ctx):
+    share = ctx["trace"].idle_share()
+    return None if share is None else 100.0 * share

@@ -1,0 +1,11 @@
+"""The serving forward's share of the card's bf16 peak over the measured
+window, in %: the benchmark's FLOP count of one request's forward
+(``flops.py``) x requests a second / 989 TFLOP/s."""
+
+from benchmark_torch import flops, work
+
+
+def read(ctx):
+    f = flops.recorded(ctx["config"], ctx["model"], ctx["batch"],
+                       ctx["agents"], ctx["k"], train=False)
+    return 100.0 * f * ctx["requests_per_s"] / work.PEAK_FLOP_S["bf16"]
