@@ -30,6 +30,7 @@ import numpy as np
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.data import preprocess, windows
+from desire_tpu_torch.utils import telemetry
 
 
 def heldout_videos(rels: list[str]) -> set[str]:
@@ -152,6 +153,7 @@ class SDDLoader:
         rng = np.random.default_rng((self.cfg.seed, epoch))
         return rng.permutation(self.num_windows)
 
+    @telemetry.span("loader.assemble")
     def _assemble(self, pair_rows: np.ndarray) -> Batch:
         b = len(pair_rows)
         A, T = self.cfg.max_num_obj, self.total_len
@@ -252,6 +254,7 @@ def _cache_dir() -> str:
                             "desire_tpu_torch"))
 
 
+@telemetry.span("setup.loader_index")
 def _load_or_build_index(rel: str, path: str, reader, subsample: int,
                          normalize: bool) -> windows.VideoIndex:
     """Parse+index one video, memoized to an npz keyed by the CSV's

@@ -24,6 +24,7 @@ from desire_tpu_torch.models import losses
 from desire_tpu_torch.models import scf as scf_mod
 from desire_tpu_torch.models import sgm as sgm_mod
 from desire_tpu_torch.parallel import mesh as mesh_mod
+from desire_tpu_torch.utils import telemetry
 
 
 def init_desire(cfg: DesireConfig, generator: torch.Generator, device,
@@ -44,6 +45,7 @@ def uses_fused_ioc(cfg: DesireConfig) -> bool:
     return cfg.use_ioc and cfg.use_pallas and cfg.use_social
 
 
+@telemetry.span("setup.pack")
 def pack_kernel_weights(params, cfg: DesireConfig, device) -> dict:
     """The weights of the forward's CUDA kernels in the layouts they read,
     packed once for ``desire_forward(kernel_weights=...)`` (a Predictor does
@@ -201,16 +203,17 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
     live = losses.agent_validity_mask(ids)
     n = b * a
     packed = kernel_weights or {}
-    out = sgm_mod.sgm_forward(
-        params["sgm"], cfg, obs_xy.reshape(n, *obs_xy.shape[2:]),
-        obs_mask.reshape(n, -1),
-        fut_xy.reshape(n, *fut_xy.shape[2:]) if train else None,
-        fut_mask.reshape(n, -1) if train else None,
-        eps=eps, generator=generator, k_samples=K, train=train,
-        keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"),
-        z_temp=(None if z_temp is None
-                else z_temp.reshape(n, 1, 1).float()),
-        mesh=mesh)
+    with telemetry.span("model.sgm"):
+        out = sgm_mod.sgm_forward(
+            params["sgm"], cfg, obs_xy.reshape(n, *obs_xy.shape[2:]),
+            obs_mask.reshape(n, -1),
+            fut_xy.reshape(n, *fut_xy.shape[2:]) if train else None,
+            fut_mask.reshape(n, -1) if train else None,
+            eps=eps, generator=generator, k_samples=K, train=train,
+            keep_x=keep_x, keep_y=keep_y, sampler_weights=packed.get("sgm"),
+            z_temp=(None if z_temp is None
+                    else z_temp.reshape(n, 1, 1).float()),
+            mesh=mesh)
 
     K = out["traj_mu"].shape[1]     # the rank's lanes under a meshed forward
     tf_len = fut_xy.shape[2]
@@ -235,52 +238,57 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
         return result
 
     cd = sgm_mod.compute_dtype(cfg)
-    if cfg.use_scf:
-        image = None
-        if cfg.scene_image_channels:
-            image = scene_image
-            if image is None:
-                image = torch.zeros((b, cfg.scene_grid, cfg.scene_grid,
-                                     cfg.scene_image_channels),
-                                    device=xy.device)
-        feat_map = scf_mod.scene_feature_map(
-            params["scf"], obs_xy.transpose(1, 2), obs_mask.transpose(1, 2),
-            cfg.scene_grid, compute_dtype=cd, image=image)
-    else:
-        # IOC without scene context: a zero map keeps the fusion layout
-        feat_map = torch.zeros(
-            (b, cfg.scene_grid, cfg.scene_grid, cfg.scene_channels),
-            dtype=cd, device=xy.device)
+    with telemetry.span("model.scf"):
+        if cfg.use_scf:
+            image = None
+            if cfg.scene_image_channels:
+                image = scene_image
+                if image is None:
+                    image = torch.zeros((b, cfg.scene_grid, cfg.scene_grid,
+                                         cfg.scene_image_channels),
+                                        device=xy.device)
+            feat_map = scf_mod.scene_feature_map(
+                params["scf"], obs_xy.transpose(1, 2),
+                obs_mask.transpose(1, 2), cfg.scene_grid, compute_dtype=cd,
+                image=image)
+        else:
+            # IOC without scene context: a zero map keeps the fusion layout
+            feat_map = torch.zeros(
+                (b, cfg.scene_grid, cfg.scene_grid, cfg.scene_channels),
+                dtype=cd, device=xy.device)
 
-    kw = dict(num_refine=max(cfg.num_refine, 1),
-              delta_scale=ioc_mod._DELTA_SCALE,
-              social_freeze=cfg.social_freeze)
-    if not train and uses_fused_ioc(cfg):
-        refine = (ops.ioc_refine if mesh is None
-                  else functools.partial(ops.ioc_refine_sharded, mesh))
-        refined, scores = refine(
-            params["ioc"], params["scf"], traj.contiguous(),
-            dec_h.contiguous(), feat_map.contiguous(), live.contiguous(),
-            fut_mask.contiguous(), weights=packed.get("ioc"), **kw)
-        per_iter = []
-    elif train and uses_fused_train_ioc(cfg):
-        refine = (ops.ioc_refine_train if lane_mesh is None else
-                  functools.partial(ops.ioc_refine_train_sharded, lane_mesh))
-        refined, scores, iters = refine(
-            params["ioc"], params["scf"], traj, dec_h, feat_map, live,
-            fut_mask, **kw)
-        per_iter = list(iters.unbind(0))
-    else:
-        # layer by layer; every lane is independent (the social pool
-        # attends within a lane), so lane_mesh splits it
-        def refine(traj, dec_h):
-            refined, scores, per_iter = ioc_mod.ioc_forward(
-                params["ioc"], params["scf"], cfg, traj, dec_h, feat_map,
-                live, fut_mask)
-            return [refined, scores, *per_iter]
-        refined, scores, *per_iter = (
-            refine(traj, dec_h) if lane_mesh is None else mesh_mod.on_lanes(
-                lane_mesh, refine, traj, dec_h, [2] * (2 + kw["num_refine"])))
+    with telemetry.span("model.ioc"):
+        kw = dict(num_refine=max(cfg.num_refine, 1),
+                  delta_scale=ioc_mod._DELTA_SCALE,
+                  social_freeze=cfg.social_freeze)
+        if not train and uses_fused_ioc(cfg):
+            refine = (ops.ioc_refine if mesh is None
+                      else functools.partial(ops.ioc_refine_sharded, mesh))
+            refined, scores = refine(
+                params["ioc"], params["scf"], traj.contiguous(),
+                dec_h.contiguous(), feat_map.contiguous(), live.contiguous(),
+                fut_mask.contiguous(), weights=packed.get("ioc"), **kw)
+            per_iter = []
+        elif train and uses_fused_train_ioc(cfg):
+            refine = (ops.ioc_refine_train if lane_mesh is None else
+                      functools.partial(ops.ioc_refine_train_sharded,
+                                        lane_mesh))
+            refined, scores, iters = refine(
+                params["ioc"], params["scf"], traj, dec_h, feat_map, live,
+                fut_mask, **kw)
+            per_iter = list(iters.unbind(0))
+        else:
+            # layer by layer; every lane is independent (the social pool
+            # attends within a lane), so lane_mesh splits it
+            def refine(traj, dec_h):
+                refined, scores, per_iter = ioc_mod.ioc_forward(
+                    params["ioc"], params["scf"], cfg, traj, dec_h, feat_map,
+                    live, fut_mask)
+                return [refined, scores, *per_iter]
+            refined, scores, *per_iter = (
+                refine(traj, dec_h) if lane_mesh is None
+                else mesh_mod.on_lanes(lane_mesh, refine, traj, dec_h,
+                                       [2] * (2 + kw["num_refine"])))
     result.update(refined_traj=refined, scores=scores,
                   per_iter_trajs=per_iter)
     return result

@@ -22,23 +22,17 @@ from pathlib import Path
 
 import torch
 
+from desire_tpu_torch.utils import telemetry
+# the kernel wrappers' launch counts, kept by the telemetry registry
+from desire_tpu_torch.utils.telemetry import (  # noqa: F401
+    LAUNCHES, reset_launch_counts)
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libdesire_kernels.so"
-
-# Launches of each kernel: every wrapper adds one where it launches its
-# kernel, and nowhere else.
-LAUNCHES = {"sgm_sample": 0, "ioc_refine": 0, "ioc_refine_train": 0,
-            "ioc_refine_bwd": 0, "nll_fwd": 0, "nll_bwd": 0,
-            "scene_pool_fwd": 0, "scene_pool_bwd": 0}
-
-
-def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def sources():
@@ -103,7 +97,13 @@ _I = ctypes.c_int
 
 @functools.cache
 def library():
-    """The loaded kernel library (built first if needed)."""
+    """The loaded kernel library (built first if needed), once a process:
+    its time is the span ``setup.kernels``."""
+    with telemetry.span("setup.kernels"):
+        return _load()
+
+
+def _load():
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
     path, _ = build()

@@ -12,7 +12,9 @@ then one JSON forecast a line on stdout for every frame that is due:
 
     python -m desire_tpu_torch.predict --save_dir save/ --stream --scale 1409
 
-The request latencies (``Predictor.stats()``) go to stderr at exit.
+At exit ``Predictor.stats()`` goes to stderr: the request latencies,
+call to return (assembly, copies, forward and answers), and each serving
+span's mean ms a call.
 ``--device cuda`` (the default) needs a CUDA device and raises without
 one.
 """

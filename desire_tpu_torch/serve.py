@@ -21,7 +21,6 @@ from __future__ import annotations
 import collections
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -32,6 +31,10 @@ from desire_tpu_torch.models import desire
 from desire_tpu_torch.parallel import mesh as mesh_mod
 from desire_tpu_torch.params import require_device, to_device
 from desire_tpu_torch.train import checkpoint as ckpt_mod
+from desire_tpu_torch.utils import telemetry
+
+# requests whose latency stats() keeps
+LATENCY_WINDOW = 10_000
 
 
 class Predictor:
@@ -79,7 +82,9 @@ class Predictor:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._calls = 0
-        self._latencies_ms: list[float] = []
+        # (latency ms, windows carried) of the latest requests
+        self._requests: collections.deque = collections.deque(
+            maxlen=LATENCY_WINDOW)
         self._default_img = (None if scene_image is None
                              else self._raster(scene_image))
 
@@ -146,6 +151,7 @@ class Predictor:
         xy = np.zeros((b, t, a, 2), np.float32)
         mask = np.zeros((b, t, a), np.float32)
         ids = np.zeros((b, a), np.int64)
+        live_slots = 0
         for i, (oxy, omask, wids) in enumerate(windows):
             oxy = np.asarray(oxy, np.float32)
             omask = np.asarray(omask, np.float32)
@@ -163,6 +169,11 @@ class Predictor:
             live = (wids[:na] != 0) & (omask[:na, -1] > 0)
             mask[i, to:, :na] = live[None, :].astype(np.float32)
             ids[i, :na] *= live.astype(np.int64)
+            live_slots += int(live.sum())
+        # the forward's agent slots, and those that carry an agent to
+        # forecast
+        telemetry.count("serve.slots", b * a)
+        telemetry.count("serve.live_slots", live_slots)
         return xy, mask, ids
 
     # -- public API ----------------------------------------------------------
@@ -198,50 +209,62 @@ class Predictor:
                     windows[i:i + self.max_windows], sc,
                     scene_image=scene_image))
             return out
-        scales = np.broadcast_to(
-            np.asarray(scales if scales is not None else 1.0, np.float32),
-            (len(windows),))
-        normed = [(np.asarray(oxy, np.float32) / scales[i], om, wids)
-                  for i, (oxy, om, wids) in enumerate(windows)]
-        xy, mask, ids = self._assemble(normed)
-        img = (self._default_img if scene_image is None
-               else self._raster(scene_image))
-        t0 = time.perf_counter()
-        dev = self.device
-        batch = [torch.as_tensor(x, device=dev) for x in (xy, mask, ids)]
-        extra = [None if x is None else torch.as_tensor(x, device=dev)
-                 for x in (eps, img)]
-        if self.mesh is not None:
-            # rank 0's, into copies (a broadcast writes in place)
-            batch = [mesh_mod.broadcast(self.mesh, x.clone()) for x in batch]
-            extra = [None if x is None
-                     else mesh_mod.broadcast(self.mesh, x.clone())
-                     for x in extra]
-            scales = mesh_mod.broadcast(self.mesh, torch.tensor(
-                scales, device=dev)).cpu().numpy()
-            ids = batch[2].cpu().numpy()
-        eps, img = extra
-        if img is not None:
-            # one raster for every window of the batch
-            img = img.expand((self.max_windows,) + img.shape)
-        traj, scores, best = self._forward(*batch, eps, img)
-        # the layer-by-layer IOC scores in the compute dtype; numpy has no
-        # bfloat16
-        traj, scores, best = (x.float().cpu().numpy()
-                              for x in (traj, scores, best))
-        self._latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        with telemetry.span("serve.request", self._calls) as request:
+            out = self._request(windows, scales, eps, scene_image)
         self._calls += 1
-        out = []
-        for i in range(len(windows)):
-            na = min(np.asarray(windows[i][2]).shape[0], self.cfg.max_num_obj)
-            s = scales[i]
-            out.append({
-                "ids": ids[i, :na].copy(),
-                "live": ids[i, :na] != 0,
-                "traj": traj[i, :na] * s,
-                "scores": scores[i, :na],
-                "best": best[i, :na] * s,
-            })
+        self._requests.append((request.wall_ns / 1e6, len(windows)))
+        return out
+
+    def _request(self, windows, scales, eps, scene_image):
+        """One batch of at most max_windows windows (predict_windows)."""
+        with telemetry.span("serve.assemble"):
+            scales = np.broadcast_to(
+                np.asarray(scales if scales is not None else 1.0,
+                           np.float32), (len(windows),))
+            normed = [(np.asarray(oxy, np.float32) / scales[i], om, wids)
+                      for i, (oxy, om, wids) in enumerate(windows)]
+            xy, mask, ids = self._assemble(normed)
+            img = (self._default_img if scene_image is None
+                   else self._raster(scene_image))
+        with telemetry.span("serve.copy_in"):
+            dev = self.device
+            batch = [torch.as_tensor(x, device=dev) for x in (xy, mask, ids)]
+            extra = [None if x is None else torch.as_tensor(x, device=dev)
+                     for x in (eps, img)]
+            if self.mesh is not None:
+                # rank 0's, into copies (a broadcast writes in place)
+                batch = [mesh_mod.broadcast(self.mesh, x.clone())
+                         for x in batch]
+                extra = [None if x is None
+                         else mesh_mod.broadcast(self.mesh, x.clone())
+                         for x in extra]
+                scales = mesh_mod.broadcast(self.mesh, torch.tensor(
+                    scales, device=dev)).cpu().numpy()
+                ids = batch[2].cpu().numpy()
+            eps, img = extra
+            if img is not None:
+                # one raster for every window of the batch
+                img = img.expand((self.max_windows,) + img.shape)
+        with telemetry.span("serve.forward"):
+            traj, scores, best = self._forward(*batch, eps, img)
+        with telemetry.span("serve.copy_back"):
+            # the layer-by-layer IOC scores in the compute dtype; numpy has
+            # no bfloat16
+            traj, scores, best = (x.float().cpu().numpy()
+                                  for x in (traj, scores, best))
+        with telemetry.span("serve.answers"):
+            out = []
+            for i in range(len(windows)):
+                na = min(np.asarray(windows[i][2]).shape[0],
+                         self.cfg.max_num_obj)
+                s = scales[i]
+                out.append({
+                    "ids": ids[i, :na].copy(),
+                    "live": ids[i, :na] != 0,
+                    "traj": traj[i, :na] * s,
+                    "scores": scores[i, :na],
+                    "best": best[i, :na] * s,
+                })
         return out
 
     def predict(self, obs_xy, obs_mask, ids, scale=1.0, eps=None,
@@ -257,21 +280,32 @@ class Predictor:
         self.predict(np.zeros((a, self.obs_len, 2), np.float32),
                      np.zeros((a, self.obs_len), np.float32),
                      np.zeros((a,), np.int64))
-        self._latencies_ms.pop()
+        self._requests.pop()
         self._calls -= 1
         return self
 
     def stats(self):
-        """Request count and latency percentiles (host clock, each request
-        ends with its outputs copied to the host)."""
-        lat = np.asarray(self._latencies_ms, np.float64)
-        if not len(lat):
+        """The request count and, over the latest ``LATENCY_WINDOW``
+        requests, latency percentiles and the windows they carried a second
+        of latency. A request's latency is its span ``serve.request`` on
+        the host clock, call to return: the assembly, the copies, the
+        forward and the answers. ``span_ms``: the mean ms a call of each
+        serving span (``serve.*``, ``model.*``, ``stream.*``) since the
+        process started or ``telemetry.reset()``; the registry is
+        process-wide, which is the Predictor's own where a process serves
+        with one Predictor (the ``model.*`` spans are training's too)."""
+        if not self._requests:
             return {"calls": 0}
+        lat = np.asarray([ms for ms, _ in self._requests], np.float64)
+        windows = sum(n for _, n in self._requests)
         return {"calls": self._calls,
                 "latency_ms_p50": float(np.percentile(lat, 50)),
                 "latency_ms_p95": float(np.percentile(lat, 95)),
                 "latency_ms_mean": float(lat.mean()),
-                "windows_per_sec": 1e3 * self._calls / float(lat.sum())}
+                "windows_per_sec": 1e3 * windows / float(lat.sum()),
+                "span_ms": telemetry.mean_ms(
+                    telemetry.snapshot()["spans"],
+                    ("serve.", "model.", "stream."))}
 
 
 class StreamServer:
@@ -331,16 +365,17 @@ class StreamServer:
                      if h[-1][0] == step)[:a_max]
         if not now:
             return None
-        na = len(now)
-        oxy = np.zeros((na, to, 2), np.float32)
-        om = np.zeros((na, to), np.float32)
-        for i, aid in enumerate(now):
-            for s, x, y in self.hist[aid]:
-                t = s - (step - to + 1)
-                if 0 <= t < to:
-                    oxy[i, t] = (x, y)
-                    om[i, t] = 1.0
-        ids = np.asarray(now, np.int64)
+        with telemetry.span("stream.history"):
+            na = len(now)
+            oxy = np.zeros((na, to, 2), np.float32)
+            om = np.zeros((na, to), np.float32)
+            for i, aid in enumerate(now):
+                for s, x, y in self.hist[aid]:
+                    t = s - (step - to + 1)
+                    if 0 <= t < to:
+                        oxy[i, t] = (x, y)
+                        om[i, t] = 1.0
+            ids = np.asarray(now, np.int64)
         out = self.p.predict(oxy, om, ids, scale=self.scale)
         out["frame"] = self.f0 + step * self.subsample
         out["step"] = step

@@ -52,7 +52,8 @@ from desire_tpu_torch.params import require_device, to_device
 from desire_tpu_torch.train import checkpoint as ckpt_mod
 from desire_tpu_torch.train import trainer
 from desire_tpu_torch.train.state import create_train_state
-from desire_tpu_torch.utils.logging import MetricLogger, profile_trace
+from desire_tpu_torch.utils import telemetry
+from desire_tpu_torch.utils.logging import MetricLogger
 
 
 def main(argv=None):
@@ -231,14 +232,18 @@ def _train(cfg, log, resume, eval_every, max_eval_batches,
                 # trace the first few batches; the main loop goes on after
                 # them (they took real steps)
                 traced = min(max_train_batches or 4, 4)
-                with profile_trace(profile_dir if mesh is None else
-                                   os.path.join(profile_dir, "rank%d"
-                                                % mesh_mod.process_index())):
+                with telemetry.profile_trace(
+                        profile_dir if mesh is None else os.path.join(
+                            profile_dir, "rank%d" % mesh_mod.process_index())
+                ) as prof:
                     state, _ = trainer.run_epoch(
                         state, loader, epoch, step_fn, log_fn=log_fn,
                         log_every=log_every, start_batch=epoch_start,
                         max_batches=traced, mesh=mesh)
-                log.log({"event": "profile", "dir": profile_dir})
+                # the device's idle seconds by the innermost span open
+                log.log({"event": "profile", "dir": profile_dir,
+                         "idle_by_span": telemetry.idle_by_span(
+                             *telemetry.profile_intervals(prof))})
                 epoch_start += traced
             state, mean_loss = trainer.run_epoch(
                 state, loader, epoch, step_fn, log_fn=log_fn,

@@ -35,6 +35,7 @@ from desire_tpu_torch.parallel import mesh as mesh_mod
 from desire_tpu_torch.train.state import (TrainState, apply_updates,
                                           global_norm, tree_leaves,
                                           tree_unflatten)
+from desire_tpu_torch.utils import telemetry
 
 
 def step_noise(cfg: DesireConfig, generator, xy_shape, device,
@@ -99,19 +100,22 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
         leaves = [x.detach().requires_grad_(True)
                   for x in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
-        total, metrics = desire.desire_loss(params, cfg, xy, mask, ids,
-                                            step=state.step, noise=noise,
-                                            generator=gen, scene_image=img,
-                                            mesh=data)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, leaves)]
+        with telemetry.span("train.forward"):
+            total, metrics = desire.desire_loss(
+                params, cfg, xy, mask, ids, step=state.step, noise=noise,
+                generator=gen, scene_image=img, mesh=data)
+        with telemetry.span("train.backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for g, x in zip(grads, leaves)]
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         if data is not None:
             grads, metrics = _reduce_over_mesh(data, grads, metrics)
-        metrics["grad_norm"] = global_norm(grads)
-        p, mu, nu, count = apply_updates(cfg, steps_per_epoch, state,
-                                         tree_unflatten(state.params, grads))
+        with telemetry.span("train.optimizer"):
+            metrics["grad_norm"] = global_norm(grads)
+            p, mu, nu, count = apply_updates(
+                cfg, steps_per_epoch, state,
+                tree_unflatten(state.params, grads))
         return TrainState(step=state.step + 1, params=p, mu=mu, nu=nu,
                           count=count, generator=gen), metrics
 
@@ -198,7 +202,15 @@ def run_epoch(state: TrainState, loader, epoch: int, step_fn,
     ``parallel.mesh.Mesh`` (step_fn made with it): the loader assembles
     only this rank's rows of each batch (block d; the ``k`` ranks of a
     row hold the same rows). Returns
-    (state, mean loss)."""
+    (state, mean loss).
+
+    Every batch is the span ``train.step`` (id: the batch index), which
+    holds ``train.loader`` (the wait for the batch), ``train.copy``, the
+    step and ``train.sync`` (the log cadence's reads); the last wait, which
+    finds no batch, is no step. The counters ``train.slots`` and
+    ``train.live_slots`` add each batch's agent slots and those that hold
+    an agent. With a ``log_fn`` each record carries ``span_ms``: every
+    span's mean ms a call since the previous record."""
     device = tree_leaves(state.params)[0].device
     losses_acc, t0 = [], time.time()
     bad = 0
@@ -218,31 +230,48 @@ def run_epoch(state: TrainState, loader, epoch: int, step_fn,
         # (loader.state, which a checkpoint records) stays at the last
         # batch trained
         batches = itertools.islice(batches, max_batches)
-    for bi, batch in enumerate(batches, start=start_batch):
-        xy, mask, ids, *img = batch_to_device(batch, device)
-        state, metrics = step_fn(state, xy, mask, ids, *img)
-        if bi % log_every == 0:
-            # the finiteness check rides the logging cadence: reading a
-            # value waits for the device
-            m = {k: float(v) for k, v in metrics.items()}
-            if not (np.isfinite(m["loss"])
-                    and np.isfinite(m.get("grad_norm", 0.0))):
-                # a non-finite gradient has already poisoned this update:
-                # the state is not handed to log_fn
-                bad += 1
-                if bad >= max_bad_steps:
-                    raise NonFiniteLossError(
-                        f"{bad} consecutive non-finite losses at epoch "
-                        f"{epoch} batch {bi}; resume from the last good "
-                        f"checkpoint")
-                continue
-            bad = 0
-            if log_fn is not None:
-                m.update(epoch=epoch, batch=bi, step=int(state.step),
-                         sec_per_batch=(time.time() - t0)
-                         / max(bi - start_batch + 1, 1))
-                log_fn(m, state)
-        losses_acc.append(metrics["loss"])
+    batches = iter(batches)
+    last = telemetry.snapshot() if log_fn is not None else None
+    for bi in itertools.count(start_batch):
+        with telemetry.span("train.step", bi) as step:
+            with telemetry.span("train.loader") as wait:
+                batch = next(batches, None)
+                # the epoch's end is no step
+                wait.discard = step.discard = batch is None
+            if batch is None:
+                break
+            telemetry.count("train.slots", batch.ids.size)
+            telemetry.count("train.live_slots", np.count_nonzero(batch.ids))
+            with telemetry.span("train.copy"):
+                xy, mask, ids, *img = batch_to_device(batch, device)
+            state, metrics = step_fn(state, xy, mask, ids, *img)
+            if bi % log_every == 0:
+                # the finiteness check rides the logging cadence: reading a
+                # value waits for the device
+                with telemetry.span("train.sync"):
+                    m = {k: float(v) for k, v in metrics.items()}
+                if not (np.isfinite(m["loss"])
+                        and np.isfinite(m.get("grad_norm", 0.0))):
+                    # a non-finite gradient has already poisoned this
+                    # update: the state is not handed to log_fn
+                    bad += 1
+                    if bad >= max_bad_steps:
+                        raise NonFiniteLossError(
+                            f"{bad} consecutive non-finite losses at epoch "
+                            f"{epoch} batch {bi}; resume from the last good "
+                            f"checkpoint")
+                    continue
+                bad = 0
+                if log_fn is not None:
+                    now = telemetry.snapshot()
+                    m.update(epoch=epoch, batch=bi, step=int(state.step),
+                             sec_per_batch=(time.time() - t0)
+                             / max(bi - start_batch + 1, 1),
+                             span_ms=telemetry.mean_ms(
+                                 telemetry.delta(last, now)))
+                    last = now
+                    log_fn(m, state)
+            losses_acc.append(metrics["loss"])
     mean_loss = (float(np.mean([float(x) for x in losses_acc]))
                  if losses_acc else float("nan"))
     if losses_acc and not np.isfinite(mean_loss):

@@ -1,15 +1,14 @@
-"""Structured metrics logging and trace capture (PyTorch port of
+"""Structured metrics logging (PyTorch port of
 ``desire_tpu/utils/logging.py``).
 
 :class:`MetricLogger` writes one JSON object a line to stdout and, when
 given a path, to a line-buffered file (machine-readable, and a crash loses
-at most the line being written). :func:`profile_trace` captures a
-``torch.profiler`` trace of a block of code as a Chrome trace file.
+at most the line being written). Trace capture is
+``utils.telemetry.profile_trace``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
@@ -40,19 +39,3 @@ class MetricLogger:
             self._f.close()
             self._f = None
 
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace of the block (host activity, and
-    the card's kernels and copies where CUDA is available) and write it to
-    ``<log_dir>/trace.json`` (Chrome trace format; open it in Perfetto or
-    chrome://tracing) when the block ends."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
