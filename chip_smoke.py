@@ -24,9 +24,13 @@ Run from the root of a checkout. It imports no JAX. In order, it:
    deterministic, holds one whole float32 training step on the card
    against the plain step on the CPU, takes five ``run_epoch`` steps at the
    flagship training shape and checks that every training kernel was
-   launched by them, and times the step and each kernel against the plain
-   versions; all of it also with social_freeze (the IOC backward's
-   frozen-attention variant), three steps;
+   launched by them (the two optimizer kernels once a step), and times the
+   step and each kernel against the plain versions; all of it also with
+   social_freeze (the IOC backward's frozen-attention variant), three
+   steps; holds the optimizer kernels (the gradients' global norm, the
+   clip and Adam over the whole tree) against their plain version at the
+   flagship's tree, clipped and not, and checks that an update runs
+   nothing else on the card (no copy);
 7. the layer-by-layer IOC path (use_social=False, fused_train=False):
    holds the scene-pool kernels against their plain versions (float32 and
    bfloat16 at small shapes with edge positions, channel counts that take
@@ -450,6 +454,13 @@ BF16_GRAD_REL_MEAN = 0.05
 # up to 2 lr, but only a few of them may.
 STEP_MAX_ABS = lambda lr: 2.0 * lr + 1e-5
 STEP_FLIP_SHARE = 1e-3
+# the optimizer kernels against ops.adam's plain version: given the same
+# norm the same bits (neither contracts into fused multiply-adds); the
+# norms differ by the order of their float32 sums (OPT_NORM_RTOL), which
+# reaches m and v through the clip's scale and the params times lr
+# (OPT_TOL; tests/test_torch_cuda.py's NORM_RTOL and ADAM_TOL).
+OPT_NORM_RTOL = 1e-5
+OPT_TOL = dict(rtol=1e-5, atol=1e-7)
 
 
 def ioc_train_args(cfg, b, rng, device):
@@ -627,11 +638,12 @@ def train_noise(cfg, rng, device):
 @contextlib.contextmanager
 def plain_train_ops():
     """Route the training kernel call sites (the trainable IOC, the NLL,
-    the scene pool) to the plain versions, under autograd (for timing the
-    plain training step on the same card)."""
+    the scene pool, the optimizer) to the plain versions, under autograd
+    (for timing the plain training step on the same card)."""
     from desire_tpu_torch import ops
-    from desire_tpu_torch.ops import ioc_fused, nll, scene_pool
+    from desire_tpu_torch.ops import adam, ioc_fused, nll, scene_pool
     saved = ops.ioc_refine_train, ops.bivariate_nll_sum, ops.bilinear_pool
+    saved_opt = adam.global_norm, adam.clip_adam
 
     def ioc_plain(*a, **kw):
         refined, scores, iters = ioc_fused.ioc_refine_plain(
@@ -640,11 +652,14 @@ def plain_train_ops():
     ops.ioc_refine_train = ioc_plain
     ops.bivariate_nll_sum = nll.bivariate_nll_plain
     ops.bilinear_pool = scene_pool.bilinear_pool_plain
+    adam.global_norm = adam.global_norm_plain
+    adam.clip_adam = adam.clip_adam_plain
     try:
         yield
     finally:
         (ops.ioc_refine_train, ops.bivariate_nll_sum,
          ops.bilinear_pool) = saved
+        adam.global_norm, adam.clip_adam = saved_opt
 
 
 def check_step_card_vs_cpu(scfg, sp, rng):
@@ -749,12 +764,90 @@ def check_not_launched(label, launches, names):
                                  f"{launches[name]} times (want 0)")
 
 
+def optimizer_work(n):
+    """(bytes, operations) of grad_sumsq and of clip_adam over n values:
+    the norm reads g; the update reads g, p, m and v and writes p', m' and
+    v' (~20 float32 operations a value)."""
+    return {"grad_sumsq": (4 * n, 2 * n), "clip_adam": (28 * n, 20 * n)}
+
+
+def check_optimizer(cfg, params, rng, dev):
+    """The optimizer kernels at the flagship's tree (params' leaves): the
+    norm and the update against ops.adam's plain version on the card, an
+    unclipped and a clipped step (OPT_NORM_RTOL, OPT_TOL; the plain update
+    with the kernel's norm bit for bit); the kernels alone on the card in
+    an update, no copy (torch.profiler). Returns (max abs errors of the
+    norm and of the update, {kernel: device ms}, plain ms of the norm and
+    of the update, the wrapper's ms)."""
+    from desire_tpu_torch.ops import adam
+    from desire_tpu_torch.train import state as tstate
+    p = tstate.tree_leaves(params)
+    n = sum(x.numel() for x in p)
+    T = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    mu = [T(rng.standard_normal(x.shape) * 1e-2) for x in p]
+    nu = [T(np.abs(rng.standard_normal(x.shape)) * 1e-4) for x in p]
+    st = tstate.TrainState(step=4, params=p, mu=mu, nu=nu, count=4,
+                           generator=None)
+    lr = tstate.learning_rate(cfg, 190, st.count)
+    bc = [1.0 - torch.tensor(b, dtype=torch.float32) ** (st.count + 1)
+          for b in (tstate.B1, tstate.B2)]
+    err_n = err_u = 0.0
+    for scale in (1e-3, 1.0):
+        g = [T(rng.standard_normal(x.shape) * scale) for x in p]
+        norm = tstate.global_norm(g)
+        got = tstate.apply_updates(cfg, 190, st, g, g_norm=norm)
+        ref_n = adam.global_norm_plain(g)
+        clipped = float(norm) >= cfg.grad_clip
+        print(f"  {n} values in {len(p)} leaves, |g| kernel "
+              f"{float(norm):.6f} plain {float(ref_n):.6f} "
+              f"({'clipped' if clipped else 'kept'})", flush=True)
+        if clipped != (scale == 1.0):
+            raise AssertionError("the optimizer check's gradients did not "
+                                 "take the clip they were drawn for")
+        err_n = max(err_n, check_close("grad_sumsq norm", norm.reshape(1),
+                                       ref_n.reshape(1), rtol=OPT_NORM_RTOL,
+                                       atol=0.0))
+        ref = adam.clip_adam_plain(p, g, mu, nu, ref_n, cfg.grad_clip, lr,
+                                   *bc)
+        same = adam.clip_adam_plain(p, g, mu, nu, norm, cfg.grad_clip, lr,
+                                    *bc)
+        for name, a_, r_, s_ in zip(("params", "mu", "nu"), got[:3], ref,
+                                    same):
+            flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])
+            err_u = max(err_u, check_close(f"clip_adam {name}", flat(a_),
+                                           flat(r_), **OPT_TOL))
+            if not all(torch.equal(x, y) for x, y in zip(a_, s_)):
+                raise AssertionError(f"clip_adam {name}: not the plain "
+                                     f"update's bits with the same norm")
+
+    def update():
+        return tstate.apply_updates(cfg, 190, st, g,
+                                    g_norm=tstate.global_norm(g))
+
+    def plain_update():
+        return adam.clip_adam_plain(p, g, mu, nu, adam.global_norm_plain(g),
+                                    cfg.grad_clip, lr, *bc)
+    dev_ms = device_ms_by_kernel(update)
+    print(f"  device time of an update by kernel: {dev_ms}", flush=True)
+    if set(dev_ms) != {"grad_sumsq_kernel", "clip_adam_kernel"}:
+        raise AssertionError("an update ran more on the card than the two "
+                             "optimizer kernels (a copy, another kernel)")
+    t_norm_p = time_ms(lambda: adam.global_norm_plain(g))
+    t_plain = time_ms(plain_update)
+    t_wrap = time_ms(update)
+    print(f"  optimizer ms: kernels {t_wrap:.3f} (the wrappers' host time "
+          f"with the card's), plain {t_plain:.3f} (its norm {t_norm_p:.3f})",
+          flush=True)
+    return (err_n, err_u), dev_ms, (t_norm_p, t_plain), t_wrap
+
+
 def training_phase(dev, smi, rng):
     """Phase 6. Returns the per-kernel results of the four training
-    kernels and of the IOC backward's social_freeze variant."""
+    kernels, of the IOC backward's social_freeze variant and of the two
+    optimizer kernels."""
     from desire_tpu_torch.models.ioc import _DELTA_SCALE
     from desire_tpu_torch.ops import ioc_bwd, ioc_fused, nll
-    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.train.state import create_train_state, tree_leaves
     from desire_tpu_torch.train.trainer import make_train_step
 
     # -- 6a. float32, small shape -------------------------------------------
@@ -866,6 +959,14 @@ def training_phase(dev, smi, rng):
                                   "3 steps, social_freeze")
     check_launches("3 social_freeze training steps", launches_fz,
                    train_names, 3)
+    for label, got, steps in (("5 training steps", launches, 5),
+                              ("3 social_freeze training steps",
+                               launches_fz, 3)):
+        # the optimizer: exactly one launch of each kernel a step
+        if (got["grad_sumsq"], got["clip_adam"]) != (steps, steps):
+            raise AssertionError(f"{label}: grad_sumsq and clip_adam "
+                                 f"launched {got['grad_sumsq']} and "
+                                 f"{got['clip_adam']} times (want {steps})")
 
     # -- 6f. timing -----------------------------------------------------------
     print(f"training timing on {smi} (CUDA events, median):", flush=True)
@@ -929,6 +1030,12 @@ def training_phase(dev, smi, rng):
         print(f"{name} ms kernel {t_k:.4f} (device time) bound {b_ms:.4f}",
               flush=True)
 
+    # -- 6g. the optimizer kernels at the flagship's tree ---------------------
+    print("optimizer kernels at the flagship's tree, float32:", flush=True)
+    # its own draws: the later phases keep the shared generator's inputs
+    opt_err, opt_dev, opt_plain, opt_wrap = check_optimizer(
+        cfg, params, np.random.default_rng(0), dev)
+
     rows = []
     for name, src, rep, err, t_k, t_p, work, runs in (
             ("ioc_refine_train", "ioc_refine.cu",
@@ -957,6 +1064,22 @@ def training_phase(dev, smi, rng):
                      "replaces": rep, "launches": count,
                      "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # the optimizer kernels replace no TPU kernel (optax's chain, which XLA
+    # fused); their times are device time, the plain ones the plain norm
+    # and the plain norm with the update
+    n_values = sum(x.numel() for x in tree_leaves(params))
+    for name, err, t_p in (("grad_sumsq", opt_err[0], opt_plain[0]),
+                           ("clip_adam", opt_err[1], opt_plain[1])):
+        t_k = opt_dev[name + "_kernel"]
+        b_ms, b_by = bound(*optimizer_work(n_values)[name], "f32")
+        print(f"{name} ms kernel {t_k:.4f} (device time) plain {t_p:.3f} "
+              f"bound {b_ms:.4f}", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "desire_tpu_torch/csrc/adam.cu",
+                     "replaces": None, "launches": launches[name],
+                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "wrapper_ms": opt_wrap})
     return rows
 
 
@@ -3208,7 +3331,17 @@ def bench_phase(dev, smi, tmp):
     ops.reset_launch_counts()
     card = [bench.model_flops(scfg, train, dev) for train in (False, True)]
     torch.cuda.synchronize()
-    check_not_launched("model_flops", dict(ops.LAUNCHES), ops.LAUNCHES)
+    # no model kernel: the counter sees every product the plain path runs;
+    # the step's optimizer runs its two kernels (use_pallas selects the
+    # model's kernels), whose element-wise work the counter does not count
+    # on either path
+    launched = dict(ops.LAUNCHES)
+    check_not_launched("model_flops", launched,
+                       [n for n in launched
+                        if n not in ("grad_sumsq", "clip_adam")])
+    if (launched["grad_sumsq"], launched["clip_adam"]) != (1, 1):
+        raise AssertionError(f"model_flops' step: optimizer launches "
+                             f"{launched} (want one of each)")
     cpu = [bench.model_flops(scfg, train, "cpu") for train in (False, True)]
     if card != cpu or min(card) <= 0:
         raise AssertionError(f"model_flops on the card {card}, on the CPU "

@@ -11,7 +11,9 @@ the scene pooling of the layer-by-layer IOC (``bilinear_pool``) are
 ``(data, k)`` mesh the serving kernels launch per rank on its block
 (``sgm_sample_decode_sharded``, ``ioc_refine_sharded``), and so do the
 IOC training kernels, their outputs gathered to every lane
-(``ioc_refine_train_sharded``).
+(``ioc_refine_train_sharded``). The optimizer's global norm, clip and Adam
+over a whole parameter tree are two kernels too (``ops.adam``, called by
+``train/state.py``).
 """
 
 from desire_tpu_torch.ops._build import LAUNCHES, reset_launch_counts

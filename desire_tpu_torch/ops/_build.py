@@ -129,6 +129,13 @@ def _load():
     lib.scene_pool_bwd_launch.restype = _I
     lib.scene_pool_bwd_ws_bytes.argtypes = [_I] * 4
     lib.scene_pool_bwd_ws_bytes.restype = ctypes.c_longlong
+    lib.adam_layout.argtypes = [_I, _P, _P]
+    lib.adam_layout.restype = ctypes.c_longlong
+    lib.grad_sumsq_launch.argtypes = [_I] + [_P] * 6
+    lib.grad_sumsq_launch.restype = _I
+    lib.clip_adam_launch.argtypes = ([_I] + [_P] * 9 + [ctypes.c_float] * 4
+                                     + [_P])
+    lib.clip_adam_launch.restype = _I
     return lib
 
 

@@ -15,7 +15,10 @@ optimizers:
   the optimizer's own update count before this update.
 
 Parameters are a tree (nested dicts and lists) of float32 tensors; each
-update returns a new tree and leaves the old one as it was.
+update returns a new tree and leaves the old one as it was. The norm, the
+clip and Adam run in ``ops.adam``: on CUDA leaves two kernel launches for
+the whole tree (the new trees views of three flat buffers), on the CPU
+the plain version leaf by leaf.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import dataclasses
 import torch
 
 from desire_tpu_torch.config import DesireConfig
-
-B1, B2, EPS = 0.9, 0.999, 1e-8
+from desire_tpu_torch.ops import adam
+from desire_tpu_torch.ops.adam import B1, B2
 
 
 def tree_leaves(tree):
@@ -52,12 +55,9 @@ def tree_unflatten(like, leaves):
 
 
 def global_norm(leaves):
-    """sqrt of the sum over leaves of each leaf's sum of squares."""
-    total = None
-    for g in leaves:
-        s = (g.float() * g.float()).sum()
-        total = s if total is None else total + s
-    return torch.sqrt(total)
+    """sqrt of the sum over leaves of each leaf's sum of squares, a 0-d
+    tensor on their device."""
+    return adam.global_norm(leaves)
 
 
 @dataclasses.dataclass
@@ -96,30 +96,20 @@ def create_train_state(cfg: DesireConfig, params, seed=None) -> TrainState:
 
 @torch.no_grad()
 def apply_updates(cfg: DesireConfig, steps_per_epoch: int,
-                  state: TrainState, grads):
-    """One optimizer update from the gradient tree ``grads``. Returns
+                  state: TrainState, grads, g_norm=None):
+    """One optimizer update from the gradient tree ``grads``. g_norm: their
+    global norm (``global_norm``), computed here when not given. Returns
     (params, mu, nu, count) of the new state."""
     p_l, g_l = tree_leaves(state.params), tree_leaves(grads)
     m_l, v_l = tree_leaves(state.mu), tree_leaves(state.nu)
-    g_norm = global_norm(g_l)
-    max_norm = float(cfg.grad_clip)
-    keep = g_norm < max_norm
+    if g_norm is None:
+        g_norm = global_norm(g_l)
     count = state.count + 1
     lr = learning_rate(cfg, steps_per_epoch, state.count)
     bc1 = 1.0 - torch.tensor(B1, dtype=torch.float32) ** count
     bc2 = 1.0 - torch.tensor(B2, dtype=torch.float32) ** count
-    new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(p_l, g_l, m_l, v_l):
-        g = g.float()
-        g = torch.where(keep, g, (g / g_norm) * max_norm)
-        m = (1.0 - B1) * g + B1 * m
-        v = (1.0 - B2) * (g * g) + B2 * v
-        m_hat = m / bc1.to(m.device)
-        v_hat = v / bc2.to(v.device)
-        u = m_hat / (torch.sqrt(v_hat) + EPS)
-        new_p.append(p + u * (-lr).to(p.device))
-        new_m.append(m)
-        new_v.append(v)
+    new_p, new_m, new_v = adam.clip_adam(p_l, g_l, m_l, v_l, g_norm,
+                                         float(cfg.grad_clip), lr, bc1, bc2)
     return (tree_unflatten(state.params, new_p),
             tree_unflatten(state.params, new_m),
             tree_unflatten(state.params, new_v), count)

@@ -3,8 +3,9 @@
 
 One step: the optional speed-augmentation zoom, ``desire_loss`` and its
 gradients (through the training kernels on CUDA tensors), the gradient
-norm before clipping, the optimizer update (``train/state.py``) and
-step + 1. Every random draw comes from the state's generator.
+norm before clipping, the optimizer update with that norm
+(``train/state.py``; two kernel launches on CUDA tensors) and step + 1.
+Every random draw comes from the state's generator.
 
 Under a ``parallel.mesh.Mesh`` of mesh_data x mesh_k ranks: every rank
 holds its rows of each batch, block d of the ``data`` axis (``run_epoch``
@@ -106,16 +107,19 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
                 generator=gen, scene_image=img, mesh=data)
         with telemetry.span("train.backward"):
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
-            grads = [torch.zeros_like(x) if g is None else g
+            # contiguous, as the optimizer kernels take them: autograd
+            # hands a weight read transposed a transposed gradient
+            grads = [torch.zeros_like(x) if g is None else g.contiguous()
                      for g, x in zip(grads, leaves)]
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         if data is not None:
             grads, metrics = _reduce_over_mesh(data, grads, metrics)
         with telemetry.span("train.optimizer"):
-            metrics["grad_norm"] = global_norm(grads)
+            # the norm taken once: the metric is the one the clip uses
+            metrics["grad_norm"] = g_norm = global_norm(grads)
             p, mu, nu, count = apply_updates(
                 cfg, steps_per_epoch, state,
-                tree_unflatten(state.params, grads))
+                tree_unflatten(state.params, grads), g_norm=g_norm)
         return TrainState(step=state.step + 1, params=p, mu=mu, nu=nu,
                           count=count, generator=gen), metrics
 

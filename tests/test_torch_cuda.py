@@ -19,6 +19,7 @@ from desire_tpu_torch import DesireConfig
 from desire_tpu_torch.models.ioc import _DELTA_SCALE
 from desire_tpu_torch.ops import _build, ioc_fused, sgm_fused
 from desire_tpu_torch.params import init_desire, to_device
+from desire_tpu_torch.train.state import tree_leaves
 
 # f32: the kernel and the plain version differ only in the order of float32
 # sums and in fused multiply-adds (the JAX kernel suite's tolerances)
@@ -881,6 +882,142 @@ def test_conv_decoder_on_the_card(cuda_device):
                               cfg.vae_side)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), **TOL)
+
+
+# The optimizer kernels (csrc/adam.cu) against ops.adam's plain version on
+# the same card. Neither side contracts a product and a sum into a fused
+# multiply-add (the kernel rounds each operation as the plain version's
+# separate launches do), so given the same norm the two agree bit for bit.
+# The norms themselves differ by the order of their float32 sums (the
+# kernel's fixed block partials against the plain version's leaf by leaf
+# sums), a few ulps at 1.6 M values: NORM_RTOL. With its own norm the
+# plain version differs through the clip's scale g / norm alone (a clipped
+# step), which m and v carry relatively and the params, times lr, within a
+# rounding step of their own size: ADAM_TOL (atol for m near zero, where
+# (1 - b1) g and b1 m cancel).
+NORM_RTOL = 1e-5
+ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
+
+
+def _adam_trees(kind, dev, seed):
+    """A leaf-list maker for (params, grads, mu, nu): "flagship" the
+    flagship's 77 leaves; "ragged" leaves of 1, 3, 5, 4097 and 524,288
+    values and three views of a flat buffer at offsets the tree ``role``
+    shifts, so that some leaves take 16-byte accesses in neither kernel
+    and some in the norm's alone."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if kind == "flagship":
+        shapes = [x.shape for x in tree_leaves(init_desire(
+            DesireConfig(), torch.Generator().manual_seed(0), "cpu"))]
+        assert len(shapes) == 77
+
+        def make(scale, role):
+            return [scale * torch.randn(s, generator=gen, device=dev)
+                    for s in shapes]
+        return make
+
+    def make(scale, role):
+        fresh = [scale * torch.randn(n, generator=gen, device=dev)
+                 for n in (1, 3, 5, 4097, 524288)]
+        flat = scale * torch.randn(4500, generator=gen, device=dev)
+        shift = 1 if role == "params" else 0
+        views = [flat[o + shift:o + shift + n]
+                 for o, n in ((0, 5), (8, 4097), (4106, 300))]
+        views[1] = views[1].view(17, 241)
+        return fresh + views
+    return make
+
+
+def _bits(xs):
+    return [x.view(torch.int32).clone() for x in xs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unclipped", "clipped", "nan_norm",
+                                  "chained"])
+@pytest.mark.parametrize("kind", ["flagship", "ragged"])
+def test_optimizer_kernels_match_plain(cuda_device, kind, case):
+    """global_norm and apply_updates through grad_sumsq and clip_adam
+    against the plain norm and update: an unclipped step, a clipped one
+    (norm >= grad_clip), a NaN norm (every output NaN, as optax's), and
+    three chained steps (count-dependent bias correction; steps_per_epoch
+    2 puts the staircase decay before the third). Each step launches one
+    of each kernel, leaves its inputs as they were, and gives the same
+    bits run twice."""
+    from desire_tpu_torch.ops import adam
+    from desire_tpu_torch.train import state as tstate
+    cfg = DesireConfig()
+    make = _adam_trees(kind, cuda_device, seed=7)
+    params = make(1.0, "params")
+    mu = make(1e-2, "mu")
+    nu = [x.abs() for x in make(1e-4, "nu")]
+    scales = {"unclipped": [1e-3], "clipped": [1.0], "nan_norm": [1e-3],
+              "chained": [1e-3, 1.0, 3e-3]}[case]
+    st = tstate.TrainState(step=0, params=params, mu=mu, nu=nu,
+                           count=0 if case == "chained" else 5,
+                           generator=None)
+    for scale in scales:
+        grads = make(scale, "grads")
+        if case == "nan_norm":
+            grads[3].view(-1)[2] = float("nan")
+        ins = st.params + grads + st.mu + st.nu
+        before = _bits(ins)
+        launched = dict(_build.LAUNCHES)
+        norm = tstate.global_norm(grads)
+        p, m, v, count = tstate.apply_updates(cfg, 2, st, grads, g_norm=norm)
+        assert (_build.LAUNCHES["grad_sumsq"], _build.LAUNCHES["clip_adam"]) \
+            == (launched["grad_sumsq"] + 1, launched["clip_adam"] + 1)
+        outs = p + m + v
+        again = tstate.apply_updates(cfg, 2, st, grads,
+                                     g_norm=tstate.global_norm(grads))
+        assert all(torch.equal(a, b) for a, b in zip(
+            _bits(outs), _bits(again[0] + again[1] + again[2])))
+        assert all(torch.equal(a, b) for a, b in zip(before, _bits(ins)))
+        plain_norm = adam.global_norm_plain(grads)
+        lr = tstate.learning_rate(cfg, 2, st.count)
+        bc1 = 1.0 - torch.tensor(tstate.B1, dtype=torch.float32) ** count
+        bc2 = 1.0 - torch.tensor(tstate.B2, dtype=torch.float32) ** count
+        args = (st.params, grads, st.mu, st.nu)
+        if case == "nan_norm":
+            assert torch.isnan(norm) and torch.isnan(plain_norm)
+            assert all(torch.isnan(x).all() for x in outs)
+        else:
+            np.testing.assert_allclose(float(norm), float(plain_norm),
+                                       rtol=NORM_RTOL)
+            assert (float(norm) >= cfg.grad_clip) == (scale == 1.0)
+            plain = adam.clip_adam_plain(*args, plain_norm, cfg.grad_clip,
+                                         lr, bc1, bc2)
+            for a, b in zip(outs, plain[0] + plain[1] + plain[2]):
+                torch.testing.assert_close(a, b, **ADAM_TOL)
+        same_norm = adam.clip_adam_plain(*args, norm, cfg.grad_clip, lr, bc1,
+                                         bc2)
+        for a, b in zip(outs, same_norm[0] + same_norm[1] + same_norm[2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        st = tstate.TrainState(st.step + 1, p, m, v, count, None)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_each_optimizer_kernel_once(cuda_device):
+    """Every step_fn call on the card launches one grad_sumsq and one
+    clip_adam, and its grad_norm is finite."""
+    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.train.trainer import make_train_step
+    cfg = _cfg(batch_size=2)
+    state = create_train_state(cfg, _params(cfg, cuda_device), seed=0)
+    step_fn = make_train_step(cfg, steps_per_epoch=10)
+    rng = np.random.default_rng(0)
+    b, t, a = 2, cfg.total_len, cfg.max_num_obj
+    xy = torch.as_tensor(rng.uniform(0.3, 0.7, (b, t, a, 2)).astype(
+        np.float32), device=cuda_device)
+    mask = torch.ones((b, t, a), device=cuda_device)
+    ids = torch.arange(1, a + 1, device=cuda_device).float().repeat(b, 1)
+    for _ in range(2):
+        launched = dict(_build.LAUNCHES)
+        state, metrics = step_fn(state, xy, mask, ids)
+        assert (_build.LAUNCHES["grad_sumsq"], _build.LAUNCHES["clip_adam"]) \
+            == (launched["grad_sumsq"] + 1, launched["clip_adam"] + 1)
+        assert np.isfinite(float(metrics["grad_norm"]))
 
 
 if __name__ == "__main__":

@@ -255,6 +255,53 @@ def test_optimizer_matches_optax_on_a_nan_norm():
     assert np.isnan(t_st.params["b"].numpy()).all()
 
 
+@pytest.mark.parametrize("clip", [True, False])
+def test_apply_updates_with_a_given_norm(clip):
+    """apply_updates(..., g_norm=global_norm(g)) is apply_updates without
+    it, bit for bit, clipped or not."""
+    cfg = _cfg(grad_clip=0.5 if clip else 1e3, learning_rate=1e-2)
+    rng = np.random.default_rng(4)
+    params = {"a": {"w": _torch(rng.standard_normal((3, 4)))},
+              "l": [_torch(rng.standard_normal(5)), _torch(0.3)]}
+    grads = tstate.tree_unflatten(params, [
+        _torch(rng.standard_normal(x.shape) * 2.0)
+        for x in tstate.tree_leaves(params)])
+    st = tstate.create_train_state(cfg, params)
+    norm = tstate.global_norm(tstate.tree_leaves(grads))
+    assert (float(norm) >= cfg.grad_clip) == clip
+    given = tstate.apply_updates(cfg, 2, st, grads, g_norm=norm)
+    taken = tstate.apply_updates(cfg, 2, st, grads)
+    assert given[3] == taken[3] == 1
+    for a_tree, b_tree in zip(given[:3], taken[:3]):
+        for x, y in zip(tstate.tree_leaves(a_tree),
+                        tstate.tree_leaves(b_tree)):
+            assert torch.equal(x, y)
+
+
+def test_train_step_grad_norm_is_the_norm_the_clip_used(jax_params,
+                                                        monkeypatch):
+    """step_fn's metrics["grad_norm"] is the very norm apply_updates
+    clipped with, taken once: with grad_clip far below the gradient's
+    norm, Adam's first moment after one step is (1 - b1) * the clipped
+    gradient, whose global norm is (1 - b1) * grad_clip."""
+    cfg = _cfg(grad_clip=1e-3)
+    seen = []
+    apply = ttrainer.apply_updates
+
+    def spy(*a, g_norm=None):
+        seen.append(g_norm)
+        return apply(*a, g_norm=g_norm)
+    monkeypatch.setattr(ttrainer, "apply_updates", spy)
+    xy, mask, ids = map(_torch, _batch(cfg, seed=6))
+    state = tstate.create_train_state(cfg, from_jax(jax_params))
+    new, metrics = ttrainer.make_train_step(cfg, 10)(state, xy, mask, ids)
+    assert len(seen) == 1 and seen[0] is metrics["grad_norm"]
+    assert float(metrics["grad_norm"]) > 100 * cfg.grad_clip
+    mu_norm = float(tstate.global_norm(tstate.tree_leaves(new.mu)))
+    np.testing.assert_allclose(mu_norm, (1.0 - tstate.B1) * cfg.grad_clip,
+                               rtol=1e-5)
+
+
 def test_train_step_matches_jax(jax_params):
     """One make_train_step step against the JAX step, on the same state and
     the JAX step's own random draws."""
