@@ -9,9 +9,11 @@ Run from the root of a checkout. It imports no JAX. In order, it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of desire_tpu_torch/csrc with nvcc;
 3. holds each serving kernel against its plain PyTorch version on the card,
-   in float32 at a small shape and in bfloat16 at the flagship shape and at
-   K = 50 (B = 16), and the whole forward on the card against the plain
-   forward on the CPU;
+   in float32 at a small shape and in bfloat16 at the flagship shape, at
+   K = 50 (B = 16) and, for the IOC kernel, at A = 128 (B = 64: one lane a
+   block, against the plain bf16 and float32 versions, with a planted
+   one-lane fault that must fail), and the whole forward on the card
+   against the plain forward on the CPU;
 4. serves three requests of 64 synthetic windows through
    ``serve.Predictor`` at the flagship shape (B=64, A=60, K=20) and checks
    that both serving kernels were launched by them;
@@ -273,6 +275,62 @@ def check_bf16(name, got, ref, verbose=True, tol=BF16_TOL):
         raise AssertionError(f"{name}: bf16 kernel disagrees with its plain "
                              f"version (max {mx:.3e}, mean {mean:.3e})")
     return mx
+
+
+def check_crowd_ioc(params, cfg, w, rng, device, kw):
+    """The bf16 IOC kernel past 64 agents a lane (cfg.max_num_obj, the
+    tensor-core path with one lane a block) against the plain version:
+    within BF16_TOL and BF16_MEAN_TOL of the plain bf16 computation (float32
+    accumulation), plain and under social_freeze (its ring of one step
+    tile), and, plain, max only, within PATH_BF16_TOL of the float32 one
+    (every operand unrounded: the means of bf16's rounding lie past
+    BF16_MEAN_TOL there at any agent count). A planted fault, lane 0 of a
+    batch row reading lane 1's last agent tile of dec_h (one lane's
+    producer loading another lane's rows), has to fail the bf16 check.
+    Returns the largest bf16 max abs error."""
+    from desire_tpu_torch.ops import ioc_fused
+    a, names = cfg.max_num_obj, ("refined", "scores")
+    block = ioc_fused.tc_block_shape(a, cfg.num_samples, cfg.pred_len,
+                                     cfg.d_dim, cfg.scene_channels)
+    if not w.use_mma or block is None:
+        raise AssertionError(f"{a} agents did not take the tensor-core path")
+    print(f"  tensor-core block at {a} agents: {block[0]} lane(s), "
+          f"{block[1]} step tile(s), {block[2]} B of shared memory",
+          flush=True)
+    data = ioc_inputs(cfg, cfg.batch_size, rng, device)
+
+    def against_plain(**extra):
+        got = ioc_fused.ioc_refine_cuda(w, *data, **kw, **extra)
+        ref = ioc_fused.ioc_refine_plain(params["ioc"], params["scf"], *data,
+                                         **kw, **extra)
+        return got, ref, max(check_bf16(n, x, y)
+                             for n, x, y in zip(names, got, ref))
+    got, ref, err = against_plain()
+    ref32 = ioc_fused.ioc_refine_plain(params["ioc"], params["scf"],
+                                       *widen(data), **kw)
+    for n, x, y in zip(names, got, ref32):
+        mx, mean = errors(x, y)
+        print(f"  {n} against float32 plain: max_abs_err={mx:.3e} (<= "
+              f"{PATH_BF16_TOL[n]}) mean_abs_err={mean:.3e}", flush=True)
+        if not mx <= PATH_BF16_TOL[n]:
+            raise AssertionError(f"{n}: the bf16 kernel at {a} agents is "
+                                 f"{mx:.3e} from float32 plain")
+    bad = data[1].clone()
+    lo = (a - 1) // 16 * 16
+    bad[1, lo:, 0] = bad[1, lo:, 1]
+    fault = ioc_fused.ioc_refine_cuda(w, data[0], bad, *data[2:], **kw)
+    caught = []
+    for n, x, y in zip(names, fault, ref):
+        mx, mean = errors(x, y)
+        if mx > BF16_TOL[n] or mean > BF16_MEAN_TOL[n]:
+            caught.append(f"{n} {mx:.3e}/{mean:.3e}")
+    if not caught:
+        raise AssertionError("the planted one-lane fault passes the bf16 "
+                             f"check at {a} agents")
+    print(f"  planted fault (a lane reads the next lane's last agent tile) "
+          f"caught: {', '.join(caught)}", flush=True)
+    print("  social_freeze=True:", flush=True)
+    return max(err, against_plain(social_freeze=True)[2])
 
 
 def time_ms(fn, repeats=5, iters=3):
@@ -3479,6 +3537,16 @@ def main():
     ioc_err = max(ioc_err, check_bf16("refined", got[0], ref[0]),
                   check_bf16("scores", got[1], ref[1]))
     del got, ref, args50, packed50
+    # A = 128 (B = 64): past 64 agents the tensor-core kernel holds one
+    # lane a block, 8 lanes an attention row
+    print("compare bfloat16, A = 128, B = 64, K = 20:", flush=True)
+    cfg128 = flagship_cfg(max_num_obj=128)
+    packed128 = pack_kernel_weights(params, cfg128, dev)
+    # its own generator: the later phases keep their inputs
+    ioc_err = max(ioc_err, check_crowd_ioc(
+        params, cfg128, packed128["ioc"], np.random.default_rng(128), dev,
+        kw_i))
+    del packed128
 
     # -- 4. serve -------------------------------------------------------------
     print("serve: Predictor at B=64, A=60, K=20, bf16", flush=True)

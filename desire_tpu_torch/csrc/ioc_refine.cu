@@ -21,22 +21,27 @@
 // the social pool and the dec_h stores 4 % each, the heads 3 %.
 //
 // What the design does (bf16 with d <= 64 and d, C multiples of 16, A <=
-// 64: the tensor-core path, ioc_refine_tc_kernel):
+// 128: the tensor-core path, ioc_refine_tc_kernel):
 // * A block takes kc lanes of one batch row (2 at the flagship, fewer
 //   where K is smaller, and the ragged last lanes masked), so that the
 //   weights load once for kc lanes. Social attention mixes agents only
-//   within one lane and one step.
+//   within one lane and one step. A block is 12 warps: a lane's consumer
+//   warps (one per 16 agents), the rest producers. Past 32 agents a lane
+//   takes 3 or more consumer warps, so past 64 a block holds one lane (8
+//   consumer and 4 producer warps at 128 agents).
 // * Within a pass the positions do not move (the deltas apply after it), so
 //   the step's inputs that only read positions are made ahead of the
-//   recurrence. Producer warps (2 a lane) fill rings of 2 step tiles: X =
-//   [dec_h | scene] (dec_h by 16-byte cp.async, the scene gather by 16-byte
-//   corner pieces from L2) and the attention (a row to 4 lanes, fast
-//   exponentials). Named barriers hand each ring slot to the consumers
-//   (full) and back (empty); nothing else synchronises the two sides. A
-//   consumer hands a slot back once the step's tiles are read, or, when T
-//   <= 2, only after the step's deltas, so that a producer never reads a
-//   position the previous pass has still to move. At the flagship the two
-//   sides take ~13-14k cycles a step each.
+//   recurrence. Producer warps fill rings of nb step tiles (2, or 1 where
+//   two do not fit in shared memory, as at 128 agents under
+//   social_freeze): X = [dec_h | scene] (dec_h by 16-byte cp.async, the
+//   scene gather by 16-byte corner pieces from L2) and the attention (a
+//   row to 4 lanes up to 64 agents, to 8 lanes past 64: 16 columns a
+//   thread, fast exponentials). Named barriers hand each ring slot to the
+//   consumers (full) and back (empty); nothing else synchronises the two
+//   sides. A consumer hands a slot back once the step's tiles are read, or,
+//   when T <= nb, only after the step's deltas, so that a producer never
+//   reads a position the previous pass has still to move. At the flagship
+//   the two sides take ~13-14k cycles a step each.
 // * A consumer warp owns 16 agent rows of one lane. Per step it makes its
 //   rows' messages (Wmsg^T dec_h^T, into the lane's message tile; a barrier
 //   of the lane's consumer warps), their social block (att msg, rounded to
@@ -56,7 +61,8 @@
 // * Scene pooling is the 4-corner align-corners gather, which equals the
 //   TPU kernel's tent weights over all G^2 nodes.
 // * social_freeze attends at the initial positions in every pass, which
-//   gives the same pooled block as attending once.
+//   gives the same pooled block as attending once; only then does a lane
+//   keep the initial position planes.
 // Otherwise (float32, other widths) ioc_refine_cc_kernel runs every phase
 // on the CUDA cores, one block of 512 threads per lane, the feature map in
 // shared memory where it fits.
@@ -83,6 +89,7 @@ namespace {
 constexpr int kTcThreads = 384;   // at most 12 warps: 168 registers each
 constexpr int kProdWarps = 2;     // producer warps a lane
 constexpr int kMaxLanes = 4;
+constexpr int kTcMaxAgents = 128; // 16 columns a thread, 8 lanes a row
 constexpr int kLaneBar = 5;       // + l: the consumers of lane l (1-4: ring)
 constexpr int kGatherBatch = 4;   // scene pieces a thread loads at once
 
@@ -91,7 +98,8 @@ struct TcLayout {
   size_t wx, wh, wmsg, wiv, bi, bh, bmsg, fmask, live, nbok, lanes;
   size_t X, att, msgT, xs, ys, x0, y0, lane_bytes;
   size_t total;
-  __host__ __device__ TcLayout(int A, int T, int d, int C, int kc, int nb) {
+  __host__ __device__ TcLayout(int A, int T, int d, int C, int kc, int nb,
+                               bool freeze) {
     const int d3 = 3 * d, kx = 2 * d + C;
     ap = (A + 15) / 16 * 16;
     mt = ap / 16;
@@ -112,15 +120,15 @@ struct TcLayout {
     nbok = b.take((size_t)A * 4);
     // one region per lane: rings of nb step tiles (X = [dec_h | scene],
     // the attention), the messages of two steps transposed to (d, agent)
-    // and the position planes (T, A)
+    // and the position planes (T, A), the initial ones under social_freeze
     Bump l;
     X = l.take((size_t)nb * ap * lx * 2);
     att = l.take((size_t)nb * ap * la * 2);
     msgT = l.take((size_t)2 * d * la * 2);
     xs = l.take((size_t)T * A * 4);
     ys = l.take((size_t)T * A * 4);
-    x0 = l.take((size_t)T * A * 4);
-    y0 = l.take((size_t)T * A * 4);
+    x0 = freeze ? l.take((size_t)T * A * 4) : xs;
+    y0 = freeze ? l.take((size_t)T * A * 4) : ys;
     lane_bytes = (l.off + 15) & ~size_t(15);
     lanes = b.take(kc * lane_bytes);
     total = b.off;
@@ -150,7 +158,9 @@ __device__ __forceinline__ void copy_rows16(__nv_bfloat16* dst, int ld,
   }
 }
 
-template <int ND>
+// LPR: the lanes that share an attention row, 4 up to 64 agents, 8 up to
+// 128 (16 columns each)
+template <int ND, int LPR>
 __global__ void __launch_bounds__(kTcThreads, 1) ioc_refine_tc_kernel(
     const float* __restrict__ traj, const __nv_bfloat16* __restrict__ dec_h,
     const __nv_bfloat16* __restrict__ fmap_g, const float* __restrict__ live_g,
@@ -167,7 +177,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) ioc_refine_tc_kernel(
   constexpr int d = ND * 16;
   constexpr int d3 = 3 * d;
   extern __shared__ __align__(16) unsigned char smem[];
-  const TcLayout L(A, T, d, C, kc, nb);
+  const TcLayout L(A, T, d, C, kc, nb, social_freeze != 0);
   const int kx = 2 * d + C, ap = L.ap, lx = L.lx, la = L.la;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -239,8 +249,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) ioc_refine_tc_kernel(
     const float2 p = reinterpret_cast<const float2*>(traj)[r * T + t];
     plane(l, L.xs)[rem] = p.x;
     plane(l, L.ys)[rem] = p.y;
-    plane(l, L.x0)[rem] = p.x;
-    plane(l, L.y0)[rem] = p.y;
+    if (social_freeze) {
+      plane(l, L.x0)[rem] = p.x;
+      plane(l, L.y0)[rem] = p.y;
+    }
   }
   __syncthreads();
   const float tau = expf(ltau[0]) + 1e-4f;
@@ -504,13 +516,19 @@ __global__ void __launch_bounds__(kTcThreads, 1) ioc_refine_tc_kernel(
     // ---- producers: the steps' tiles, kc lanes together ----------------
     const int ptid = tid - ncw * 32, pw = ptid >> 5, npw = npt >> 5;
     const int pieces = d / 8, cpieces = C / 8;
-    const int sub = lane >> 2, q4 = lane & 3;
+    constexpr int kRows = 32 / LPR;  // attention rows a warp at once
+    const int sub = lane / LPR, q4 = lane % LPR;
     const bf* fm = fmap_g + (size_t)b * G * G * C;
     const float ninv = -1.f / tau;
-    // the live agents of the batch row as bits (A <= 64)
-    unsigned long long livebits = 0ull;
-    for (int j = 0; j < A; ++j)
+    // the live agents of the batch row as bits, past 64 agents 64-127 in a
+    // second word (a thread's first 8 columns of 16 lie below 64 when LPR
+    // is 8)
+    unsigned long long livebits = 0ull, livebits_hi = 0ull;
+    for (int j = 0; j < min(A, 64); ++j)
       if (live[j] > 0.f) livebits |= 1ull << j;
+    if constexpr (LPR == 8)
+      for (int j = 64; j < A; ++j)
+        if (live[j] > 0.f) livebits_hi |= 1ull << (j - 64);
     for (int u = 0; u < steps; ++u) {
       const int t = u % T, s = u % nb;
       // the buffers are free once their last reader has handed them back
@@ -578,8 +596,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) ioc_refine_tc_kernel(
                          pack_bf16(make_float2(out[6], out[7])));
         }
       }
-      // attention rows: 4 lanes a row, column j on lane j % 4
-      for (int row0 = pw * 8; row0 < kc * A; row0 += npw * 8) {
+      // attention rows: LPR lanes a row, column j on lane j % LPR
+      for (int row0 = pw * kRows; row0 < kc * A; row0 += npw * kRows) {
         const int row = row0 + sub;
         const bool act = row < kc * A;
         const int l = act ? row / A : 0, a = act ? row - l * A : 0;
@@ -592,30 +610,37 @@ __global__ void __launch_bounds__(kTcThreads, 1) ioc_refine_tc_kernel(
         float mx = -INFINITY;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
-          const int j = q4 + 4 * i, jc = min(j, A - 1);
+          const int j = q4 + LPR * i, jc = min(j, A - 1);
           const float xj = qx[jc], yj = qy[jc];
           const float d2 = (sqa + (xj * xj + yj * yj))
                            - 2.f * (xa * xj + ya * yj);
-          const bool excl = j == a || !((livebits >> jc) & 1ull);
+          bool excl;
+          if constexpr (LPR == 4)
+            excl = j == a || !((livebits >> jc) & 1ull);
+          else
+            excl = j == a || !(((i >= 8 ? livebits_hi : livebits)
+                                >> (jc & 63)) & 1ull);
           e[i] = j < A ? (excl ? -1e9f : d2 * ninv) : -INFINITY;
           mx = fmaxf(mx, e[i]);
         }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+#pragma unroll
+        for (int o = 1; o < LPR; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         float sum = 0.f;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           e[i] = __expf(e[i] - mx);  // 0 for the columns past A
           sum += e[i];
         }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+        for (int o = 1; o < LPR; o <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
         if (act) {
           bf* ar = attp(l, s) + a * la;
           const float scale = nbok[a] / sum;
 #pragma unroll
           for (int i = 0; i < 16; ++i) {
-            const int j = q4 + 4 * i;
+            const int j = q4 + LPR * i;
             if (j < A) ar[j] = __float2bfloat16(e[i] * scale);
           }
         }
@@ -945,31 +970,59 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The tensor-core path's launch: kc lanes a block, as many as 12 warps and
-// shared memory allow, rings of 2 step tiles (1 when T = 1).
-template <int ND>
-int launch_tc(const Args& g) {
+// The tensor-core path's launch: 12 warps a block, kc lanes of mt consumer
+// warps each (mt = agents / 16, rounded up) as many as leave each lane 2
+// producer warps, the producers taking the other warps. The ring holds 2
+// step tiles where shared memory allows (fewer lanes first), else 1 (1
+// when T = 1). No layout past kTcMaxAgents agents: cudaErrorInvalidValue.
+template <int ND, int LPR>
+int launch_tc_lpr(const Args& g, int kc, int nb, size_t bytes) {
   using Cp = const __nv_bfloat16*;
   using F = const float*;
-  const int mt = (g.A + 15) / 16;
-  const int nb = g.T >= 2 ? 2 : 1;
-  int kc = min(min(g.K, kMaxLanes), kTcThreads / 32 / (mt + kProdWarps));
-  while (kc > 1 && TcLayout(g.A, g.T, g.d, g.C, kc, nb).total > kMaxSmem)
-    --kc;
-  const size_t bytes = TcLayout(g.A, g.T, g.d, g.C, kc, nb).total;
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  cudaFuncSetAttribute(ioc_refine_tc_kernel<ND>,
+  cudaFuncSetAttribute(ioc_refine_tc_kernel<ND, LPR>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
   const int groups = (g.K + kc - 1) / kc;
-  ioc_refine_tc_kernel<ND>
-      <<<g.B * groups, 32 * kc * (mt + kProdWarps), bytes, g.stream>>>(
-          F(g.traj), Cp(g.dec_h), Cp(g.fmap), F(g.live), F(g.fut_mask),
-          F(g.wiv), Cp(g.wx), Cp(g.wh), F(g.bi), F(g.bh), Cp(g.headw),
-          F(g.headb), Cp(g.wmsg), Cp(g.bmsg), F(g.ltau), (float*)g.refined,
-          (float*)g.scores, (float*)g.iters, g.B, g.A, g.K, g.T, g.G, g.C,
-          g.num_refine, g.social_freeze, g.delta_scale, kc, nb);
+  ioc_refine_tc_kernel<ND, LPR>
+      <<<g.B * groups, kTcThreads, bytes, g.stream>>>(
+      F(g.traj), Cp(g.dec_h), Cp(g.fmap), F(g.live), F(g.fut_mask),
+      F(g.wiv), Cp(g.wx), Cp(g.wh), F(g.bi), F(g.bh), Cp(g.headw),
+      F(g.headb), Cp(g.wmsg), Cp(g.bmsg), F(g.ltau), (float*)g.refined,
+      (float*)g.scores, (float*)g.iters, g.B, g.A, g.K, g.T, g.G, g.C,
+      g.num_refine, g.social_freeze, g.delta_scale, kc, nb);
   return (int)cudaGetLastError();
+}
+
+// The lanes a block and the ring depth of the tensor-core path at these
+// shapes, and the shared memory they take; false where none fits.
+bool tc_shape(int A, int K, int T, int d, int C, bool freeze, int* kc_out,
+              int* nb_out, size_t* bytes_out) {
+  if (A < 1 || A > kTcMaxAgents) return false;
+  const int mt = (A + 15) / 16;
+  const int kc_max =
+      min(min(K, kMaxLanes), kTcThreads / 32 / (mt + kProdWarps));
+  for (int nb = T >= 2 ? 2 : 1; nb >= 1; --nb)
+    for (int kc = kc_max; kc >= 1; --kc) {
+      const size_t bytes = TcLayout(A, T, d, C, kc, nb, freeze).total;
+      if (bytes <= kMaxSmem) {
+        *kc_out = kc;
+        *nb_out = nb;
+        *bytes_out = bytes;
+        return true;
+      }
+    }
+  return false;
+}
+
+template <int ND>
+int launch_tc(const Args& g) {
+  int kc, nb;
+  size_t bytes;
+  if (!tc_shape(g.A, g.K, g.T, g.d, g.C, g.social_freeze != 0, &kc, &nb,
+                &bytes))
+    return cudaErrorInvalidValue;
+  return g.A <= 64 ? launch_tc_lpr<ND, 4>(g, kc, nb, bytes)
+                   : launch_tc_lpr<ND, 8>(g, kc, nb, bytes);
 }
 
 template <typename CD>
@@ -1003,9 +1056,9 @@ int launch_cc(const Args& g) {
 // is_bf16, else float32). Weights: wiv (2, 3d), bi, bh (3d), headb (4),
 // ltau (1) float32; bmsg (d) compute dtype. The matrices, compute dtype:
 // wx = [Wdec; Wscene; Wsocial] (2d + C, 3d), wh (d, 3d), wmsg (d, d),
-// headw (d, 4) = [score | gate | delta]; with use_mma (bf16, A <= 64, d and
-// C multiples of 16, d <= 64) they come TRANSPOSED, (out, in), and headw
-// zero-padded to (8, d). Outputs refined (B, A, K, T, 2) and scores
+// headw (d, 4) = [score | gate | delta]; with use_mma (bf16, A <= 128, d
+// and C multiples of 16, d <= 64) they come TRANSPOSED, (out, in), and
+// headw zero-padded to (8, d). Outputs refined (B, A, K, T, 2) and scores
 // (B, A, K) float32, and, unless iters is null, every refine pass's
 // positions (num_refine, B, A, K, T, 2) float32. Returns
 // cudaGetLastError().
@@ -1023,7 +1076,8 @@ extern "C" int ioc_refine_launch(
                        social_freeze, delta_scale,
                        static_cast<cudaStream_t>(stream)};
   if (use_mma) {
-    if (!is_bf16 || A > 64 || C % 16) return cudaErrorInvalidValue;
+    if (!is_bf16 || A > desire::kTcMaxAgents || C % 16)
+      return cudaErrorInvalidValue;
     switch (d) {
       case 16: return desire::launch_tc<1>(g);
       case 32: return desire::launch_tc<2>(g);
@@ -1034,4 +1088,20 @@ extern "C" int ioc_refine_launch(
   }
   if (is_bf16) return desire::launch_cc<__nv_bfloat16>(g);
   return desire::launch_cc<float>(g);
+}
+
+// The tensor-core path's block at these shapes: lanes a block (kc), step
+// tiles in the ring (nb) and dynamic shared memory in bytes, written to
+// out[3]; returns 0, or cudaErrorInvalidValue where no layout fits (more
+// than 128 agents).
+extern "C" int ioc_refine_tc_shape(int A, int K, int T, int d, int C,
+                                   int social_freeze, long long* out) {
+  int kc, nb;
+  size_t bytes;
+  if (!desire::tc_shape(A, K, T, d, C, social_freeze != 0, &kc, &nb, &bytes))
+    return cudaErrorInvalidValue;
+  out[0] = kc;
+  out[1] = nb;
+  out[2] = (long long)bytes;
+  return 0;
 }

@@ -1722,6 +1722,27 @@ extern "C" long long ioc_refine_bwd_ws_words(int B, int A, int K, int T,
          * (long long)desire::bwd_ws_words(A, T, d, C, R, social_freeze);
 }
 
+// Dynamic shared memory of one block (BwdLayout) at these shapes, with the
+// tensor-core variant where is_bf16 and d, C are multiples of 16, as the
+// launch picks it; more than kMaxSmem fails the launch.
+extern "C" long long ioc_refine_bwd_smem_bytes(int A, int T, int d, int C,
+                                               int G, int is_bf16) {
+  const bool mma = is_bf16 && d % 16 == 0 && C % 16 == 0;
+  return (long long)desire::BwdLayout(A, T, d, C, G, mma).total;
+}
+
+// The most agents a lane whose block (BwdLayout) fits in kMaxSmem at these
+// widths; 0 where not even one does.
+extern "C" int ioc_refine_bwd_max_agents(int T, int d, int C, int G,
+                                         int is_bf16) {
+  int a = 0;
+  while (a < 4096
+         && ioc_refine_bwd_smem_bytes(a + 1, T, d, C, G, is_bf16)
+                <= (long long)desire::kMaxSmem)
+    ++a;
+  return a;
+}
+
 // in[21]: traj (B, A, K, T, 2) f32, iters (R, B, A, K, T, 2) f32, dec_h and
 // msg (B, A, K, T, d) CD, fmap (B, G, G, C) CD, live (B, A) f32, fut_mask
 // (B, A, T) f32, wi (F, 3d) CD with F = 2 + C + 2d rows [vel | scene |

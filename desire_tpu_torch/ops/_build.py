@@ -119,6 +119,12 @@ def _load():
     lib.ioc_refine_bwd_launch.restype = _I
     lib.ioc_refine_bwd_ws_words.argtypes = [_I] * 8
     lib.ioc_refine_bwd_ws_words.restype = ctypes.c_longlong
+    lib.ioc_refine_bwd_smem_bytes.argtypes = [_I] * 6
+    lib.ioc_refine_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.ioc_refine_bwd_max_agents.argtypes = [_I] * 5
+    lib.ioc_refine_bwd_max_agents.restype = _I
+    lib.ioc_refine_tc_shape.argtypes = [_I] * 6 + [_P]
+    lib.ioc_refine_tc_shape.restype = _I
     lib.nll_fwd_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P]
     lib.nll_fwd_launch.restype = _I
     lib.nll_bwd_launch.argtypes = [_P] * 5 + [_I] * 3 + [_P]

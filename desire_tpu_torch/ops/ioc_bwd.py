@@ -27,6 +27,7 @@ stop-gradients as ``models/ioc.ioc_forward``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -107,6 +108,24 @@ def bwd_workspace_words(b, a, k, t, d, c, r, social_freeze):
     per_block = (t * a * (6 * d + c + 4) + (r + 1) * t * a * c
                  + (2 * t * a * d if social_freeze else 0))
     return b * k * per_block
+
+
+@functools.lru_cache(maxsize=None)
+def check_bwd_agents(a, t, d, c, g, bf16):
+    """Raise unless the backward kernel's block layout (``BwdLayout``)
+    fits a lane of ``a`` agents in shared memory at these widths (bf16:
+    the tensor-core variant where d and C allow it), naming the most
+    agents it holds there, as the kernel library counts them."""
+    lib = _build.library()
+    most = lib.ioc_refine_bwd_max_agents(t, d, c, g, int(bf16))
+    if a <= most:
+        return
+    need = lib.ioc_refine_bwd_smem_bytes(a, t, d, c, g, int(bf16))
+    raise ValueError(
+        f"{a} agents a lane: the fused IOC backward's shared-memory layout "
+        f"(BwdLayout, csrc/ioc_refine_bwd.cu) holds at most {most} agents "
+        f"at d {d}, C {c}, T {t}, G {g} ({need} bytes needed); train with "
+        f"fewer agents a window")
 
 
 def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
@@ -251,8 +270,13 @@ def ioc_refine_train(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,
     feat_map and the IOC and message parameters.
 
     CUDA tensors run the training forward kernel and the backward kernel;
-    CPU tensors the plain version under autograd."""
+    CPU tensors the plain version under autograd. On CUDA tensors it
+    raises before any launch where the backward kernel cannot hold the
+    lane's agents (``check_bwd_agents``)."""
     if traj.is_cuda:
+        check_bwd_agents(*(int(x) for x in (
+            traj.shape[1], traj.shape[3], dec_h.shape[-1], feat_map.shape[-1],
+            feat_map.shape[1])), dec_h.dtype == torch.bfloat16)
         leaves = [_ioc_leaf(p_ioc, path) for path in _IOC_LEAVES]
         return _TrainableIoc.apply(
             int(num_refine), float(delta_scale), bool(social_freeze),

@@ -35,8 +35,12 @@ import torch
 
 from desire_tpu_torch.ops import _build
 from desire_tpu_torch.ops.scene_pool import bilinear_pool_plain
+from desire_tpu_torch.utils import telemetry
 
 _F32 = torch.float32
+# the most agents a lane the tensor-core kernel holds (csrc/ioc_refine.cu
+# kTcMaxAgents)
+TC_MAX_AGENTS = 128
 
 
 def _mm(a, b, cd):
@@ -164,9 +168,10 @@ class IocWeights:
     by :func:`pack_ioc` for lanes of at most ``max_agents`` agents. A
     snapshot: later changes to the param trees do not reach it.
 
-    use_mma (bf16, d and C multiples of 16, d at most 64, at most 64
-    agents) runs the kernel's tensor-core path, which takes the matrices
-    transposed, (out, in), with the heads zero-padded to 8 columns.
+    use_mma (bf16, d and C multiples of 16, d at most 64, at most
+    ``TC_MAX_AGENTS`` agents) runs the kernel's tensor-core path, which
+    takes the matrices transposed, (out, in), with the heads zero-padded to
+    8 columns.
     """
     compute_dtype: torch.dtype
     max_agents: int
@@ -180,7 +185,11 @@ def pack_ioc(p_ioc, p_scf, compute_dtype, device, max_agents) -> IocWeights:
     """The IOC and scene param trees -> the kernel's weights: matrices and
     the message bias in the compute dtype, the rest in float32, all
     contiguous on ``device``. The input-gate matrix is stacked as
-    [dec d | scene C | social d] (its velocity rows stay apart)."""
+    [dec d | scene C | social d] (its velocity rows stay apart).
+
+    bf16 at the tensor-core path's widths takes that path up to
+    ``TC_MAX_AGENTS`` agents and raises past it: no layout holds more, and
+    the CUDA-core path is no silent stand-in."""
     cd = compute_dtype
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16: {cd}")
@@ -188,8 +197,12 @@ def pack_ioc(p_ioc, p_scf, compute_dtype, device, max_agents) -> IocWeights:
     d = int(gp["wh"].shape[0])
     c = int(gp["wi"].shape[0]) - 2 - 2 * d
     w = _split_weights(p_ioc, c, d)
-    use_mma = (cd == torch.bfloat16 and max_agents <= 64 and d <= 64
-               and d % 16 == 0 and c % 16 == 0)
+    use_mma = (cd == torch.bfloat16 and d <= 64 and d % 16 == 0
+               and c % 16 == 0)
+    if use_mma and max_agents > TC_MAX_AGENTS:
+        raise ValueError(
+            f"{max_agents} agents a lane: the tensor-core IOC kernel holds "
+            f"at most {TC_MAX_AGENTS} (TC_MAX_AGENTS)")
     heads_w = w["heads_w"]
     if use_mma:
         heads_w = torch.cat([heads_w, heads_w.new_zeros((d, 4))], dim=-1)
@@ -252,12 +265,30 @@ def ioc_refine_cuda(w: IocWeights, traj, dec_h, feat_map, live, fut_mask, *,
         float(delta_scale),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"ioc_refine kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"ioc_refine kernel launch failed: CUDA error {rc} ({a} agents, "
+            f"K {k}, T {t}, d {w.d}, C {w.c}, "
+            f"{'tensor-core' if w.use_mma else 'CUDA-core'} path; no "
+            f"shared-memory layout fits, or past {TC_MAX_AGENTS} agents)")
+    telemetry.count("ioc.agent_tiles", (a + 15) // 16)
     if collect_iters:
         _build.LAUNCHES["ioc_refine_train"] += 1
         return refined, scores, iters
     _build.LAUNCHES["ioc_refine"] += 1
+    if w.use_mma:
+        telemetry.count("launch.ioc_refine.mma")
     return refined, scores
+
+
+def tc_block_shape(a, k, t, d, c, social_freeze=False):
+    """The tensor-core kernel's block at these shapes: (lanes a block, step
+    tiles in its ring, shared-memory bytes), or None where no layout fits
+    (past ``TC_MAX_AGENTS`` agents). Asks the kernel library."""
+    out = (ctypes.c_longlong * 3)()
+    rc = _build.library().ioc_refine_tc_shape(
+        int(a), int(k), int(t), int(d), int(c), int(bool(social_freeze)),
+        out)
+    return None if rc else tuple(int(x) for x in out)
 
 
 def ioc_refine(p_ioc, p_scf, traj, dec_h, feat_map, live, fut_mask, *,

@@ -32,6 +32,7 @@ import torch
 
 from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import desire
+from desire_tpu_torch.ops import ioc_bwd
 from desire_tpu_torch.parallel import mesh as mesh_mod
 from desire_tpu_torch.train.state import (TrainState, apply_updates,
                                           global_norm, tree_leaves,
@@ -82,6 +83,11 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
     data = mesh if mesh is not None and mesh.size > 1 else None
 
     def step_fn(state: TrainState, xy, mask, ids, img=None, noise=None):
+        if xy.is_cuda and desire.uses_fused_train_ioc(cfg):
+            # before any launch: the IOC backward's block holds the lane
+            ioc_bwd.check_bwd_agents(
+                xy.shape[2], cfg.pred_len, cfg.d_dim, cfg.scene_channels,
+                cfg.scene_grid, cfg.compute_dtype == "bfloat16")
         gen = state.generator
         xy = xy.float()
         global_shape = list(xy.shape)
@@ -113,7 +119,8 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
                      for g, x in zip(grads, leaves)]
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         if data is not None:
-            grads, metrics = _reduce_over_mesh(data, grads, metrics)
+            with telemetry.span("train.allreduce"):
+                grads, metrics = _reduce_over_mesh(data, grads, metrics)
         with telemetry.span("train.optimizer"):
             # the norm taken once: the metric is the one the clip uses
             metrics["grad_norm"] = g_norm = global_norm(grads)

@@ -102,9 +102,10 @@ def test_sampler_kernel_matches_plain(cuda_device, n, dtype, lat):
     ("bfloat16", 8, 5, False), ("bfloat16", 16, 5, False),
     ("bfloat16", 16, 5, True), ("bfloat16", 16, 70, False)])
 def test_ioc_kernel_matches_plain(cuda_device, dtype, c, a, social_freeze):
-    """bf16 with C = 16 and A <= 64 takes the tensor-core path; C = 8 or
-    A = 70 the CUDA-core one. bf16 tolerances as in chip_smoke.py: rare
-    rounding flips move single elements, the mean error stays small."""
+    """bf16 with C = 16 (A <= 128) takes the tensor-core path, A = 70
+    with one lane a block; C = 8 the CUDA-core one. bf16 tolerances as in
+    chip_smoke.py: rare rounding flips move single elements, the mean
+    error stays small."""
     cfg = _cfg(scene_channels=c, compute_dtype=dtype)
     cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     p = _params(cfg, cuda_device)
@@ -123,7 +124,7 @@ def test_ioc_kernel_matches_plain(cuda_device, dtype, c, a, social_freeze):
               social_freeze=social_freeze)
     before = _build.LAUNCHES["ioc_refine"]
     w = ioc_fused.pack_ioc(p["ioc"], p["scf"], cd, cuda_device, a)
-    assert w.use_mma == (dtype == "bfloat16" and c == 16 and a <= 64)
+    assert w.use_mma == (dtype == "bfloat16" and c == 16 and a <= 128)
     got = ioc_fused.ioc_refine_cuda(w, *args, **kw)
     assert _build.LAUNCHES["ioc_refine"] == before + 1
     ref = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args, **kw)
@@ -223,6 +224,142 @@ def test_ioc_tensor_core_path_matches_plain(cuda_device, a, k, live_mode,
         atol, mean = (0.1, 5e-3) if i == 1 else (5e-3, 2e-4)
         np.testing.assert_allclose(g, r, rtol=0, atol=atol)
         assert np.abs(g - r).mean() < mean
+
+
+def _crowd_case(cuda_device, a, k=20, b=4, seed=0):
+    """IOC kernel inputs at the flagship's widths (d 48, C 32, G 32, T 12,
+    4 refine passes) with ``a`` agents, every one live."""
+    cfg = _cfg(scene_channels=32, scene_grid=32, d_dim=48, pred_len=12,
+               num_refine=4, compute_dtype="bfloat16", max_num_obj=a,
+               num_samples=k)
+    p = _params(cfg, cuda_device)
+    rng = np.random.default_rng(seed + a)
+    f = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x, np.float32), device=cuda_device).to(dt)
+    fut = np.ones((b, a, 12), np.float32)
+    fut[:, :, -1] = 0.0
+    args = (f(rng.uniform(0.2, 0.8, (b, a, k, 12, 2))),
+            f(np.tanh(rng.standard_normal((b, a, k, 12, 48))),
+              torch.bfloat16),
+            f(np.maximum(rng.standard_normal((b, 32, 32, 32)), 0.0),
+              torch.bfloat16),
+            f(np.ones((b, a))), f(fut))
+    return cfg, p, args
+
+
+def _tile_from_next_lane(dec_h):
+    """dec_h with lane 0 of row 0 reading lane 1's last agent tile (one
+    lane's producer loading another lane's rows)."""
+    bad = dec_h.clone()
+    a = bad.shape[1]
+    lo = (a - 1) // 16 * 16
+    bad[0, lo:, 0] = bad[0, lo:, 1]
+    return bad
+
+
+def _within_bf16(got, ref):
+    """The bf16 kernel tolerances of chip_smoke.py (BF16_TOL, BF16_MEAN_TOL)
+    for (refined, scores[, iters])."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err = (g.float() - r.float()).abs()
+        mx, mean = (0.1, 5e-3) if i == 1 else (5e-3, 2e-4)
+        if not (bool(torch.isfinite(g).all()) and float(err.max()) <= mx
+                and float(err.mean()) < mean):
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,social_freeze,collect_iters,block", [
+    (60, False, False, (2, 2)), (65, False, False, (1, 2)),
+    (96, False, False, (1, 2)), (128, False, False, (1, 2)),
+    (128, True, False, (1, 1)), (128, False, True, (1, 2))])
+def test_ioc_tensor_core_path_past_64_agents(cuda_device, a, social_freeze,
+                                             collect_iters, block):
+    """The tensor-core IOC kernel at the flagship's widths, K = 20, with 60
+    agents (two lanes a block, a ring of two step tiles) and 65, 96 and
+    128 (one lane a block: 8 lanes an attention row); at 128 under
+    social_freeze the initial positions leave room for one step tile
+    only. Against the plain version in bf16 within chip_smoke.py's kernel
+    tolerances; a lane that reads the next lane's last agent tile fails
+    them."""
+    cfg, p, args = _crowd_case(cuda_device, a)
+    kw = dict(num_refine=4, delta_scale=_DELTA_SCALE,
+              social_freeze=social_freeze, collect_iters=collect_iters)
+    shape = ioc_fused.tc_block_shape(a, 20, 12, 48, 32, social_freeze)
+    assert shape[:2] == block and shape[2] <= 232448
+    w = ioc_fused.pack_ioc(p["ioc"], p["scf"], torch.bfloat16, cuda_device,
+                           a)
+    assert w.use_mma
+    from desire_tpu_torch.utils import telemetry
+    before = telemetry.snapshot()["counters"]
+    got = ioc_fused.ioc_refine_cuda(w, *args, **kw)
+    after = telemetry.snapshot()["counters"]
+    assert after.get("ioc.agent_tiles", 0) - before.get(
+        "ioc.agent_tiles", 0) == (a + 15) // 16
+    assert after.get("launch.ioc_refine.mma", 0) - before.get(
+        "launch.ioc_refine.mma", 0) == (0 if collect_iters else 1)
+    ref = ioc_fused.ioc_refine_plain(p["ioc"], p["scf"], *args, **kw)
+    assert _within_bf16(got, ref)
+    bad = (args[0], _tile_from_next_lane(args[1]), *args[2:])
+    assert not _within_bf16(ioc_fused.ioc_refine_cuda(w, *bad, **kw), ref)
+
+
+@pytest.mark.cuda
+def test_ioc_tensor_core_path_refuses_past_128_agents(cuda_device):
+    """No tensor-core layout past 128 agents: the kernel library says so,
+    and pack_ioc refuses rather than fall back."""
+    assert ioc_fused.tc_block_shape(129, 20, 12, 48, 32) is None
+    assert ioc_fused.tc_block_shape(128, 20, 12, 48, 32) is not None
+    cfg, p, _ = _crowd_case(cuda_device, 8)
+    with pytest.raises(ValueError, match="at most 128"):
+        ioc_fused.pack_ioc(p["ioc"], p["scf"], torch.bfloat16, cuda_device,
+                           129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,c,g,bf16", [
+    (6, 16, 8, 8, 0), (12, 48, 32, 32, 1), (6, 16, 8, 8, 1),
+    (12, 48, 32, 32, 0)])
+def test_ioc_backward_agent_limit(cuda_device, t, d, c, g, bf16):
+    """The library's most agents a lane is the last whose BwdLayout fits
+    a block: the check passes it and names it one agent past it (61 at
+    the flagship's widths)."""
+    from desire_tpu_torch.ops import ioc_bwd
+    lib = _build.library()
+    most = lib.ioc_refine_bwd_max_agents(t, d, c, g, bf16)
+    assert 0 < most < 4096
+    if (t, d, c, g, bf16) == (12, 48, 32, 32, 1):
+        assert most == 61
+    sizes = [lib.ioc_refine_bwd_smem_bytes(a, t, d, c, g, bf16)
+             for a in (1, most, most + 1)]
+    assert sizes == sorted(sizes)
+    ioc_bwd.check_bwd_agents(most, t, d, c, g, bool(bf16))
+    with pytest.raises(ValueError, match=f"at most {most} agents"):
+        ioc_bwd.check_bwd_agents(most + 1, t, d, c, g, bool(bf16))
+
+
+@pytest.mark.cuda
+def test_train_step_past_the_backward_limit_raises_before_any_launch(
+        cuda_device):
+    """A training step at 128 agents, flagship widths: the fused IOC
+    backward's layout does not fit, and the step says so before it
+    launches anything."""
+    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.train.trainer import make_train_step
+    cfg = _cfg(scene_channels=32, scene_grid=32, d_dim=48, pred_len=12,
+               num_refine=4, compute_dtype="bfloat16", max_num_obj=128,
+               batch_size=2)
+    state = create_train_state(cfg, _params(cfg, cuda_device), seed=0)
+    step_fn = make_train_step(cfg, steps_per_epoch=10)
+    b, t, a = 2, cfg.total_len, cfg.max_num_obj
+    xy = torch.full((b, t, a, 2), 0.5, device=cuda_device)
+    mask = torch.ones((b, t, a), device=cuda_device)
+    ids = torch.arange(1, a + 1, device=cuda_device).float().repeat(b, 1)
+    launched = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="BwdLayout.*at most 61 agents"):
+        step_fn(state, xy, mask, ids)
+    assert dict(_build.LAUNCHES) == launched
 
 
 def _ioc_train_case(cuda_device, dtype, c, a, d=16, seed=1):

@@ -158,10 +158,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("dtype,agents,mma", [
     (torch.float32, 4, False), (torch.bfloat16, 4, True),
-    (torch.bfloat16, 65, False)])
+    (torch.bfloat16, 65, True), (torch.bfloat16, 128, True)])
 def test_kernel_weight_packs(dtype, agents, mma):
     """The packs hold the kernels' layouts: the tensor-core path (bf16,
-    widths multiples of 16, at most 64 agents for IOC) takes its matrices
+    widths multiples of 16, at most 128 agents for IOC) takes its matrices
     transposed, (out, in), and the IOC heads padded to 8 columns; all else
     takes them (in, out). The Predictor packs only for CUDA."""
     cfg = DesireConfig(**{**TINY, "d_dim": 16, "latent_size": 16,
