@@ -121,6 +121,7 @@ It also exits non-zero when no CUDA device is visible.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -164,6 +165,14 @@ BF16_MEAN_TOL = {"dec_h": 2e-3, "hx": 2e-3, "refined": 2e-4, "scores": 5e-3}
 # float32 tolerances, catches it (check_ioc_path_call). The means keep
 # BF16_MEAN_TOL.
 PATH_BF16_TOL = {"refined": 0.03, "scores": 1.2}
+
+
+def release_card():
+    """Give the memory this process keeps cached back to the card before a
+    process of its own shares it: a graphed training step's memory pool
+    stays cached after its step function goes until empty_cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi_line():
@@ -720,6 +729,23 @@ def plain_train_ops():
         adam.global_norm, adam.clip_adam = saved_opt
 
 
+def routed_step(cfg):
+    """make_train_step's step_fn, one for each routing of the training
+    kernel call sites: a graphed step replays the kernels its capture
+    recorded, so the plain turns (plain_train_ops) take a step function
+    captured under them."""
+    from desire_tpu_torch import ops
+    from desire_tpu_torch.train.trainer import make_train_step
+    fns = {}
+
+    def step_fn(*args, **kwargs):
+        route = ops.bivariate_nll_sum
+        if route not in fns:
+            fns[route] = make_train_step(cfg, steps_per_epoch=190)
+        return fns[route](*args, **kwargs)
+    return step_fn
+
+
 def check_step_card_vs_cpu(scfg, sp, rng):
     """One float32 make_train_step step from the params sp: the kernels on
     the card against the plain versions on the CPU, on the same batch and
@@ -906,7 +932,6 @@ def training_phase(dev, smi, rng):
     from desire_tpu_torch.models.ioc import _DELTA_SCALE
     from desire_tpu_torch.ops import ioc_bwd, ioc_fused, nll
     from desire_tpu_torch.train.state import create_train_state, tree_leaves
-    from desire_tpu_torch.train.trainer import make_train_step
 
     # -- 6a. float32, small shape -------------------------------------------
     print("training kernels, float32, small shape:", flush=True)
@@ -1034,7 +1059,7 @@ def training_phase(dev, smi, rng):
     for name, c in (("train_step_ms", cfg),
                     ("train_step_ms social_freeze", cfg_fz)):
         st0 = create_train_state(c, params, seed=0)
-        step_fn = make_train_step(c, steps_per_epoch=190)
+        step_fn = routed_step(c)
         step_ms[name] = time_in_turns(
             lambda: step_fn(st0, xy, mask, ids), plain_train_ops, name,
             repeats=3, iters=2)
@@ -1142,9 +1167,10 @@ def training_phase(dev, smi, rng):
 
 
 def step_split(name, cfg, params, batch, step_ms):
-    """Where a training step's time goes: the loss forward, its backward
-    (forward + backward less forward) and the optimizer with the rest (the
-    step less both), CUDA events."""
+    """Where a training step's time goes: the eager loss forward, its
+    backward (forward + backward less forward) and the optimizer with the
+    rest (the step less both: below zero where the step replays the
+    loss's CUDA graphs, faster than the eager loss), CUDA events."""
     from desire_tpu_torch.models.desire import desire_loss
     from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
@@ -1157,7 +1183,7 @@ def step_split(name, cfg, params, batch, step_ms):
     # allow_unused: use_social=False leaves the social weights out
     t_loss_bwd = time_ms(lambda: torch.autograd.grad(
         loss_fwd(), leaves, allow_unused=True), repeats=3, iters=2)
-    print(f"{name} split ms: loss forward {t_loss:.3f}, backward "
+    print(f"{name} split ms: eager loss forward {t_loss:.3f}, backward "
           f"{t_loss_bwd - t_loss:.3f}, optimizer and the rest "
           f"{step_ms - t_loss_bwd:.3f}", flush=True)
 
@@ -1716,11 +1742,16 @@ def recorded_training_calls():
     the NLL (``ops.bivariate_nll_sum``) and the scene pool of the layer-by-
     layer IOC (``ops.bilinear_pool``, with the gradient that reaches its
     output, appended to its args when the backward runs); all go through as
-    usual. Yields the list of (kernel name, detached args, kwargs)."""
+    usual. The training steps run eagerly meanwhile: a graphed step's
+    replays launch the kernels its capture recorded with no call to record
+    (phase 11d holds the graphed step against the eager one). Yields the
+    list of (kernel name, detached args, kwargs)."""
     from desire_tpu_torch import ops
     from desire_tpu_torch.ops import ioc_bwd
+    from desire_tpu_torch.train import graphed
     calls = []
     saved = ops.ioc_refine_train, ops.bivariate_nll_sum, ops.bilinear_pool
+    engages = graphed.engages
 
     def detach(x):
         if isinstance(x, dict):
@@ -1746,11 +1777,13 @@ def recorded_training_calls():
         "ioc_refine_train", saved[0])
     ops.bivariate_nll_sum = recorder("nll", saved[1])
     ops.bilinear_pool = pool
+    graphed.engages = lambda *a, **kw: False
     try:
         yield calls
     finally:
         ops.ioc_refine_train = ioc_bwd.ioc_refine_train = saved[0]
         ops.bivariate_nll_sum, ops.bilinear_pool = saved[1:]
+        graphed.engages = engages
 
 
 # each recorded training call site and the launches it makes, one each
@@ -2066,6 +2099,7 @@ def entry_point_phase(dev, smi, rng, tmp):
         # in a process of its own: cuBLAS reads its deterministic workspace
         # setting when it starts, and the other phases keep the default
         sys.stdout.flush()
+        release_card()
         rc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--resume-check",
              data_dir, tmp], env=dict(os.environ,
@@ -2857,6 +2891,7 @@ def mesh_phase(dev, smi, rng):
     del p_dev
 
     port = free_port()
+    release_card()
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--mesh-rank",
          str(r), str(port), tmp], cwd=ROOT, stdout=subprocess.PIPE,
@@ -3182,7 +3217,22 @@ def conv_phase(dev, smi, rng):
         del calls
         add(got)
         runs[remat] = ([m["loss"] for m in logged], peak,
-                       warm_step_ms(logged))
+                       warm_step_ms(logged), got)
+    # the same steps graphed (remat off; the recorded ones ran eagerly)
+    logged, got, _ = epoch_run(flagship_cfg(vae_dec="conv"), params, loader,
+                               "remat=False, graphed")
+    graphed_losses = [m["loss"] for m in logged]
+    diff = max(abs(x - y) / max(abs(x), 1e-6)
+               for x, y in zip(graphed_losses, runs[False][0]))
+    names = ("ioc_refine_train", "ioc_refine_bwd", "nll_fwd", "nll_bwd",
+             "grad_sumsq", "clip_adam")
+    print(f"  graphed: losses {graphed_losses} against the eager "
+          f"{runs[False][0]}, max relative difference {diff:.3e} (<= "
+          f"1e-3); launches as the eager step's: "
+          f"{all(got[k] == runs[False][3][k] for k in names)}", flush=True)
+    if diff > 1e-3 or any(got[k] != runs[False][3][k] for k in names):
+        raise AssertionError("the graphed conv training step parts from "
+                             "the eager one")
     diff = max(abs(x - y) / max(abs(x), 1e-6)
                for x, y in zip(runs[False][0], runs[True][0]))
     print(f"  remat: losses off {runs[False][0]} on {runs[True][0]}, max "
@@ -3296,6 +3346,7 @@ def bench_phase(dev, smi, tmp):
     env = dict(os.environ, DESIRE_TORCH_CACHE_DIR=os.path.join(tmp, "cache"))
 
     # -- 12a. the bench's own process ----------------------------------------
+    release_card()
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "desire_tpu_torch.bench"],
                          cwd=ROOT, env=env, capture_output=True, text=True,

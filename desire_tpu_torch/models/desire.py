@@ -191,10 +191,12 @@ def _meshed_forward(params, cfg, mesh, xy, mask, ids, *, eps, generator,
 
 def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
              train, kernel_weights, keep_x, keep_y, z_temp, scene_image,
-             mesh=None, lane_mesh=None):
+             mesh=None, lane_mesh=None, encode_only=False):
     """The forward on the given rows: under ``mesh`` (inference) on the
     rank's lanes of every stage, under ``lane_mesh`` (training) on all K
-    lanes but the IOC's (:func:`desire_forward`)."""
+    lanes but the IOC's (:func:`desire_forward`). encode_only: stop before
+    the IOC, with its inputs dec_h and feat_map among the outputs
+    (:func:`loss_encode`)."""
     K = k_samples or cfg.num_samples
     xy = xy.float()
     mask = mask.float()
@@ -257,6 +259,21 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
                 (b, cfg.scene_grid, cfg.scene_grid, cfg.scene_channels),
                 dtype=cd, device=xy.device)
 
+    if encode_only:
+        result.update(dec_h=dec_h, feat_map=feat_map)
+        return result
+    refined, scores, per_iter = _refine(
+        params, cfg, traj, dec_h, feat_map, live, fut_mask, train=train,
+        packed=packed, mesh=mesh, lane_mesh=lane_mesh)
+    result.update(refined_traj=refined, scores=scores,
+                  per_iter_trajs=per_iter)
+    return result
+
+
+def _refine(params, cfg, traj, dec_h, feat_map, live, fut_mask, *, train,
+            packed, mesh, lane_mesh):
+    """The IOC stage (span ``model.ioc``) of :func:`_forward`: (refined,
+    scores, per-pass trajectories)."""
     with telemetry.span("model.ioc"):
         kw = dict(num_refine=max(cfg.num_refine, 1),
                   delta_scale=ioc_mod._DELTA_SCALE,
@@ -289,9 +306,7 @@ def _forward(params, cfg, xy, mask, ids, *, eps, generator, k_samples,
                 refine(traj, dec_h) if lane_mesh is None
                 else mesh_mod.on_lanes(lane_mesh, refine, traj, dec_h,
                                        [2] * (2 + kw["num_refine"])))
-    result.update(refined_traj=refined, scores=scores,
-                  per_iter_trajs=per_iter)
-    return result
+    return refined, scores, per_iter
 
 
 def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
@@ -316,7 +331,13 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     the same loss, and the IOC's share of its gradients is mk times its
     lanes' (``train.trainer`` sums over the mesh and divides by mk). Where
     K does not split over ``k``, every rank runs all the lanes.
-    Returns (total, metrics), metrics with the JAX package's keys."""
+    Returns (total, metrics), metrics with the JAX package's keys.
+
+    It runs as three stages: :func:`loss_encode` (the SGM training forward
+    and the scene feature map), :func:`loss_refine` (the IOC) and
+    :func:`loss_tail` (every term after the IOC). The graphed training
+    step (``train/graphed.py``) replays the first and the last as CUDA
+    graphs around the eager IOC."""
     K = k_samples or cfg.num_samples
     b, _, a, _ = xy.shape
     dev = xy.device
@@ -328,6 +349,65 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
             or (cfg.keep_prob < 1.0 and {"keep_x", "keep_y"} - set(nz))):
         raise ValueError("under a mesh the loss takes the rank's rows of "
                          "the step's global draws: pass every one in noise")
+    lane_u = nz.get("lane_u")
+    if lane_u is None:
+        lane_u = torch.rand((b, a, K), generator=generator, device=dev)
+    elif tuple(lane_u.shape) != (b, a, K):
+        raise ValueError(f"lane_u must be {(b, a, K)}, got "
+                         f"{tuple(lane_u.shape)}")
+    out = loss_encode(params, cfg, xy, mask, ids, k_samples=K, noise=nz,
+                      generator=generator, scene_image=scene_image,
+                      lane_mesh=lane_mesh)
+    refined, scores, per_iter = loss_refine(params, cfg, out,
+                                            lane_mesh=lane_mesh)
+    out.update(refined_traj=refined, scores=scores, per_iter_trajs=per_iter)
+    return loss_tail(cfg, out, lane_u, step=step, mesh=mesh)
+
+
+def loss_encode(params, cfg: DesireConfig, xy, mask, ids, *, k_samples,
+                noise, generator=None, scene_image=None, lane_mesh=None):
+    """:func:`desire_loss`'s first stage: the training forward up to the
+    IOC, that is the SGM training forward (encoders, CVAE, the decoder
+    layer by layer) and the scene feature map. noise: the step's draws
+    ("eps", "keep_x", "keep_y"; a missing one is drawn from generator).
+    Returns :func:`desire_forward`'s outputs before the IOC, with the
+    IOC's inputs dec_h and feat_map where the model has an IOC."""
+    return _forward(params, cfg, xy, mask, ids, eps=noise.get("eps"),
+                    generator=generator, k_samples=k_samples, train=True,
+                    kernel_weights=None, keep_x=noise.get("keep_x"),
+                    keep_y=noise.get("keep_y"), z_temp=None,
+                    scene_image=scene_image, lane_mesh=lane_mesh,
+                    encode_only=True)
+
+
+def loss_refine(params, cfg: DesireConfig, enc, *, lane_mesh=None):
+    """:func:`desire_loss`'s second stage: the IOC on ``enc``'s sgm_traj,
+    dec_h, feat_map, live and fut_mask (:func:`loss_encode`'s outputs).
+    With the fused training IOC it is ``ops.ioc_refine_train``, looked up
+    at call time, whose backward is the IOC backward kernel. Returns
+    (refined, scores, per-pass trajectories); without an IOC the
+    sampler's trajectories, None and no passes."""
+    if not cfg.use_ioc:
+        return enc["sgm_traj"], None, []
+    return _refine(params, cfg, enc["sgm_traj"], enc["dec_h"],
+                   enc["feat_map"], enc["live"], enc["fut_mask"], train=True,
+                   packed={}, mesh=None, lane_mesh=lane_mesh)
+
+
+def loss_tail(cfg: DesireConfig, out, lane_u, *, step=None, mesh=None):
+    """:func:`desire_loss`'s last stage: every term after the IOC (the NLL
+    kernels, the KLD with its warm-up, the prior lanes' NLL, the IOC
+    cross-entropy, the refinement regression, the trust region, the speed
+    weights) down to the total and the metrics. out: :func:`loss_encode`'s
+    outputs with refined_traj, scores and per_iter_trajs
+    (:func:`loss_refine`'s); lane_u: the variety subset's (B, A, K)
+    uniforms; step: the update count of the KLD warm-up, an int or a 0-d
+    float32 tensor on the batch's device (the graphed step's, which
+    replays the stage for every step); mesh: as :func:`desire_loss`'s.
+    Returns (total, metrics)."""
+    K = lane_u.shape[-1]
+    b, a = out["live"].shape
+    dev = out["fut_xy"].device
 
     def stat_mean(values, weights):
         # a detached masked mean over the global batch
@@ -337,16 +417,6 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
             [(values * weights).sum(), weights.sum()]))
         return tot[0] / torch.clamp(tot[1], min=1e-8)
 
-    lane_u = nz.get("lane_u")
-    if lane_u is None:
-        lane_u = torch.rand((b, a, K), generator=generator, device=dev)
-    elif tuple(lane_u.shape) != (b, a, K):
-        raise ValueError(f"lane_u must be {(b, a, K)}, got "
-                         f"{tuple(lane_u.shape)}")
-    out = desire_forward(params, cfg, xy, mask, ids, eps=nz.get("eps"),
-                         generator=generator, k_samples=K, train=True,
-                         keep_x=nz.get("keep_x"), keep_y=nz.get("keep_y"),
-                         scene_image=scene_image, lane_mesh=lane_mesh)
     fut_xy, fut_mask, live = out["fut_xy"], out["fut_mask"], out["live"]
     f32 = torch.float32
     # an agent must have at least one valid future step
@@ -401,7 +471,13 @@ def desire_loss(params, cfg: DesireConfig, xy, mask, ids, *, step=None,
     kld = losses.masked_mean(kld_per, live, count=count)
     w_kld = cfg.w_kld
     if cfg.kld_warmup and step is not None:
-        ramp = torch.as_tensor(step, dtype=f32) / cfg.kld_warmup
+        if torch.is_tensor(step):
+            # a divisor on the card: one given as a number is multiplied
+            # in as its reciprocal there, which can round otherwise than
+            # the eager step's division on the host
+            ramp = step / torch.full_like(step, cfg.kld_warmup)
+        else:
+            ramp = torch.as_tensor(step, dtype=f32) / cfg.kld_warmup
         w_kld = w_kld * torch.clamp(ramp, 0.0, 1.0).to(dev)
 
     total = cfg.w_nll * nll + w_kld * kld

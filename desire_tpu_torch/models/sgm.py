@@ -270,8 +270,9 @@ def _residual_envelope(p, cfg, rel_obs, obs_mask, cv_vel):
     gain_c = torch.exp(p["vel_gain_cross_log"]).to(s.dtype)
     bound_c = (gain_c * s + floor)[:, None]
     nrm = torch.linalg.norm(cv_vel, dim=-1, keepdim=True)
-    unit_x = torch.tensor([1.0, 0.0], dtype=cv_vel.dtype,
-                          device=cv_vel.device)
+    # (1, 0) made on the device: a copy from the host would stop the
+    # graphed training step's capture (train/graphed.py)
+    unit_x = torch.nn.functional.pad(torch.ones_like(nrm), (0, 1))
     u = torch.where(nrm > 1e-6, cv_vel / torch.clamp(nrm, min=1e-6), unit_x)
     return vel_bound, bound_c, u[:, None, :]
 

@@ -93,6 +93,27 @@ def _layout(lib, n, sizes):
     return start.tolist(), int(start[n]), int(blocks)
 
 
+def flat_layout(leaves):
+    """Where ``clip_adam_cuda`` puts each of a tree's leaves in its flat
+    buffers: (each leaf's start, the buffers' size)."""
+    sizes = np.array([x.numel() for x in leaves], np.int64)
+    start, total, _ = _layout(_build.library(), len(leaves), sizes)
+    return start[:-1], total
+
+
+def flat_source(leaves, starts, total):
+    """The flat buffer of which ``leaves`` are ``clip_adam_cuda``'s views,
+    at ``starts`` of ``total`` values (``flat_layout``), or None where
+    they are not."""
+    base = leaves[0]._base
+    if base is None or base.numel() != total or base.dtype != _F32:
+        return None
+    for x, s in zip(leaves, starts):
+        if x._base is not base or x.storage_offset() != s:
+            return None
+    return base
+
+
 def global_norm_cuda(leaves):
     """Launch ``grad_sumsq_kernel`` over contiguous float32 CUDA leaves.
     Returns the norm, a 0-d float32 tensor on their device."""

@@ -5,7 +5,8 @@ One step: the optional speed-augmentation zoom, ``desire_loss`` and its
 gradients (through the training kernels on CUDA tensors), the gradient
 norm before clipping, the optimizer update with that norm
 (``train/state.py``; two kernel launches on CUDA tensors) and step + 1.
-Every random draw comes from the state's generator.
+Every random draw comes from the state's generator. On the card the loss
+and its gradients replay CUDA graphs (``train/graphed.py``).
 
 Under a ``parallel.mesh.Mesh`` of mesh_data x mesh_k ranks: every rank
 holds its rows of each batch, block d of the ``data`` axis (``run_epoch``
@@ -34,6 +35,7 @@ from desire_tpu_torch.config import DesireConfig
 from desire_tpu_torch.models import desire
 from desire_tpu_torch.ops import ioc_bwd
 from desire_tpu_torch.parallel import mesh as mesh_mod
+from desire_tpu_torch.train import graphed as graphed_mod
 from desire_tpu_torch.train.state import (TrainState, apply_updates,
                                           global_norm, tree_leaves,
                                           tree_unflatten)
@@ -79,10 +81,22 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
     metrics are the loss's, plus "grad_norm" of the gradients before
     clipping. mesh: a ``parallel.mesh.Mesh`` of any shape; xy, mask, ids
     and img are then the rank's rows of the global batch, noise the global
-    draws, and the metrics the global ones (the module's docstring)."""
+    draws, and the metrics the global ones (the module's docstring).
+
+    Where ``graphed.engages`` (on the card, no mesh, the fused training
+    IOC, the captured batch shape) the loss and its gradients replay CUDA
+    graphs around the eager IOC, captured at the first such call
+    (``train/graphed.py``); elsewhere they run eagerly. Every call counts
+    ``train.loss_calls``, every graphed one ``train.loss_graphed``; a
+    graphed step ends waiting for the card to finish the step before it
+    (span ``train.wait``), so the host keeps one step ahead."""
     data = mesh if mesh is not None and mesh.size > 1 else None
+    graphed = None      # the graphed loss, captured at the first call
+    pending = None      # the card's end of the last graphed step
 
     def step_fn(state: TrainState, xy, mask, ids, img=None, noise=None):
+        nonlocal graphed, pending
+        telemetry.count("train.loss_calls")
         if xy.is_cuda and desire.uses_fused_train_ioc(cfg):
             # before any launch: the IOC backward's block holds the lane
             ioc_bwd.check_bwd_agents(
@@ -104,20 +118,40 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
                                           device=xy.device).reshape(
                 -1, 1, 1, 1))
             xy = torch.clamp(0.5 + (xy - 0.5) * s, 0.0, 1.0)
-        leaves = [x.detach().requires_grad_(True)
-                  for x in tree_leaves(state.params)]
+        state_leaves = tree_leaves(state.params)
+        leaves = [x.detach().requires_grad_(True) for x in state_leaves]
         params = tree_unflatten(state.params, leaves)
+        shape = graphed_mod.batch_shape(xy, img)
+        use_graphs = graphed_mod.engages(
+            cfg, cuda=xy.is_cuda, mesh=data, shape=shape,
+            captured=None if graphed is None else graphed.shape)
+        batch = (xy, mask, ids, img, noise)
+        if use_graphs and graphed is None:
+            with telemetry.span("setup.train_graphs"):
+                graphed = graphed_mod.GraphedLoss(cfg, state.params, *batch)
+                graphed.capture(state_leaves, params, *batch, state.step)
         with telemetry.span("train.forward"):
-            total, metrics = desire.desire_loss(
-                params, cfg, xy, mask, ids, step=state.step, noise=noise,
-                generator=gen, scene_image=img, mesh=data)
+            if use_graphs:
+                metrics = graphed.forward(state_leaves, params, *batch,
+                                          state.step)
+            else:
+                total, metrics = desire.desire_loss(
+                    params, cfg, xy, mask, ids, step=state.step,
+                    noise=noise, generator=gen, scene_image=img, mesh=data)
         with telemetry.span("train.backward"):
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-            # contiguous, as the optimizer kernels take them: autograd
-            # hands a weight read transposed a transposed gradient
-            grads = [torch.zeros_like(x) if g is None else g.contiguous()
-                     for g, x in zip(grads, leaves)]
-        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+            if use_graphs:
+                grads = graphed.backward(leaves)
+            else:
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
+                # contiguous, as the optimizer kernels take them: autograd
+                # hands a weight read transposed a transposed gradient
+                grads = [torch.zeros_like(x) if g is None else g.contiguous()
+                         for g, x in zip(grads, leaves)]
+        if use_graphs:
+            telemetry.count("train.loss_graphed")
+        else:
+            metrics = {k: torch.as_tensor(v).detach()
+                       for k, v in metrics.items()}
         if data is not None:
             with telemetry.span("train.allreduce"):
                 grads, metrics = _reduce_over_mesh(data, grads, metrics)
@@ -127,6 +161,16 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
             p, mu, nu, count = apply_updates(
                 cfg, steps_per_epoch, state,
                 tree_unflatten(state.params, grads), g_norm=g_norm)
+        if use_graphs:
+            # the host runs at most one step ahead of the card: it waits
+            # here for the step before this one, and not at a launch of
+            # the next step's, which a full queue of the card's would stop
+            done = torch.cuda.Event()
+            done.record()
+            if pending is not None:
+                with telemetry.span("train.wait"):
+                    pending.synchronize()
+            pending = done
         return TrainState(step=state.step + 1, params=p, mu=mu, nu=nu,
                           count=count, generator=gen), metrics
 

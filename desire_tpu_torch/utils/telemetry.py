@@ -30,7 +30,9 @@ the device's busy time would count as work. Without a profiler a span
 costs one boolean check on top of its totals.
 
 ``count(name, n)`` adds to a counter, always. The kernel wrappers' launch
-counts are the ``launch`` group (``LAUNCHES``, also ``ops.LAUNCHES``).
+counts are the ``launch`` group (``LAUNCHES``, also ``ops.LAUNCHES``);
+``tally`` reads counters and launch counts together and ``add_tally``
+adds a difference of two back (a CUDA graph's replay).
 ``snapshot()`` returns plain numbers, so that callers take the difference
 of two (``delta``, ``mean_ms``); ``reset()`` zeroes everything. The
 registry is process-wide.
@@ -185,6 +187,27 @@ def count(name: str, n: int = 1) -> None:
     """Add n to the counter ``name``."""
     with _LOCK:
         COUNTERS[name] = COUNTERS.get(name, 0) + int(n)
+
+
+def tally() -> dict:
+    """Every counter and launch count, {name: n}, the launch counts as
+    ``launch.<kernel>`` (``snapshot``'s counters, without the spans)."""
+    with _LOCK:
+        out = dict(COUNTERS)
+    out.update(("launch." + k, v) for k, v in LAUNCHES.items())
+    return out
+
+
+def add_tally(delta: dict) -> None:
+    """Add each n of ``delta`` (a difference of two ``tally``) to its
+    launch count or counter: a CUDA graph's replay counts what its
+    capture counted."""
+    for name, n in delta.items():
+        kernel = name[len("launch."):] if name.startswith("launch.") else None
+        if kernel in LAUNCHES:
+            LAUNCHES[kernel] += n
+        else:
+            count(name, n)
 
 
 def snapshot() -> dict:

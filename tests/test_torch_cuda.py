@@ -1157,6 +1157,130 @@ def test_train_step_launches_each_optimizer_kernel_once(cuda_device):
         assert np.isfinite(float(metrics["grad_norm"]))
 
 
+# the flagship's toy widths (as the benchmark's toy runs cut them) on an
+# 8 x 8 x 8 scene map: the IOC backward kernel refuses the toy's 16 x 16 x
+# 16 map at 8 agents (its feature-map staging outgrows the block's layout)
+FLAGSHIP_TOY = dict(batch_size=4, max_num_obj=8, num_samples=4, d_dim=16,
+                    latent_size=16, embedding_size=16, channel_multiplier=8,
+                    scene_grid=8, scene_channels=8, compute_dtype="float32")
+
+
+def _graphed_run(cfg, params, batches, noises, graphs, monkeypatch):
+    """Three step_fn calls from one fresh state, the graphed loss allowed
+    or not (``train.graphed.engages``). Returns (the final state, per step
+    {metrics, the gradients handed to the optimizer, launches, IOC
+    backward calls}, the step_fn)."""
+    from desire_tpu_torch.ops import ioc_bwd
+    from desire_tpu_torch.train import graphed, trainer
+    from desire_tpu_torch.train.state import create_train_state
+    seen = {"grads": None, "bwd": 0}
+    apply, bwd = trainer.apply_updates, ioc_bwd.ioc_refine_bwd_cuda
+
+    def recorded_apply(cfg_, spe, st, grads, **kw):
+        # a copy: the graphed step's gradients are the graph's buffers
+        seen["grads"] = [g.clone() for g in tree_leaves(grads)]
+        return apply(cfg_, spe, st, grads, **kw)
+
+    def counted_bwd(*a, **kw):
+        seen["bwd"] += 1
+        return bwd(*a, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(trainer, "apply_updates", recorded_apply)
+        m.setattr(ioc_bwd, "ioc_refine_bwd_cuda", counted_bwd)
+        if not graphs:
+            m.setattr(graphed, "engages", lambda *a, **kw: False)
+        step_fn = trainer.make_train_step(cfg, steps_per_epoch=10)
+        state = create_train_state(cfg, params, seed=0)
+        steps = []
+        for batch, noise in zip(batches, noises):
+            launched, calls = dict(_build.LAUNCHES), seen["bwd"]
+            state, metrics = step_fn(state, *batch, noise=noise)
+            steps.append(dict(
+                metrics=metrics, grads=seen["grads"], bwd=seen["bwd"] - calls,
+                launches={k: _build.LAUNCHES[k] - v
+                          for k, v in launched.items()}))
+        torch.cuda.synchronize()
+    return state, steps, step_fn
+
+
+def _groups(state, steps):
+    """Every number of a run in groups, each one flat vector: each step's
+    metrics and its gradients, the final params and moments."""
+    flat = lambda xs: torch.cat([x.reshape(-1).double() for x in xs])
+    out = {}
+    for i, st in enumerate(steps):
+        out[f"step{i}.metrics"] = flat(st["metrics"][k]
+                                       for k in sorted(st["metrics"]))
+        out[f"step{i}.grads"] = flat(st["grads"])
+    for name in ("params", "mu", "nu"):
+        out[name] = flat(tree_leaves(getattr(state, name)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ["toy", "flagship"])
+def test_graphed_step_matches_the_eager_step(cuda_device, widths,
+                                             monkeypatch):
+    """Three graphed steps against three eager ones from the same state,
+    batches and draws: each step's metrics and gradients and the final
+    params and moments bit for bit where three eager runs repeat them bit
+    for bit, elsewhere within twice the eager runs' own largest difference
+    (L2 over the group) of the eager run nearest; the launches and the IOC
+    backward's calls (one) of each step as the eager step's; the steps'
+    metrics distinct (run_epoch keeps them without a copy); a batch of
+    another shape then runs eagerly and is counted so."""
+    from desire_tpu_torch import bench
+    from desire_tpu_torch.train import trainer
+    from desire_tpu_torch.utils import telemetry
+    cfg = bench.flagship_cfg().replace(social_freeze=False)
+    if widths == "toy":
+        cfg = cfg.replace(**FLAGSHIP_TOY)
+    params = _params(cfg, cuda_device)
+    b, t, a = cfg.batch_size, cfg.total_len, cfg.max_num_obj
+    rng = np.random.default_rng(5)
+    batches, noises = [], []
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    for _ in range(3):
+        xy = rng.uniform(0.2, 0.8, (b, t, a, 2)) + 0.01 * np.arange(
+            t)[None, :, None, None]
+        ids = np.tile(np.arange(1, a + 1), (b, 1)).astype(np.float32)
+        ids[rng.random((b, a)) < 0.1] = 0.0
+        mask = np.ones((b, t, a), np.float32) * (ids[:, None] > 0)
+        batches.append(tuple(torch.as_tensor(np.asarray(x, np.float32),
+                                             device=cuda_device)
+                             for x in (xy, mask, ids)))
+        noises.append(trainer.step_noise(cfg, gen, (b, t, a, 2),
+                                         cuda_device))
+    eager = [_graphed_run(cfg, params, batches, noises, False, monkeypatch)
+             for _ in range(3)]
+    before = telemetry.tally()
+    state, steps, step_fn = _graphed_run(cfg, params, batches, noises, True,
+                                         monkeypatch)
+    after = telemetry.tally()
+    assert after["train.loss_graphed"] - before.get("train.loss_graphed",
+                                                    0) == 3
+    ref = [_groups(s, st) for s, st, _ in eager]
+    got = _groups(state, steps)
+    assert set(got) == set(ref[0])
+    for name, x in got.items():
+        spread = max(float((r1[name] - r2[name]).norm())
+                     for i, r1 in enumerate(ref) for r2 in ref[i + 1:])
+        off = min(float((x - r[name]).norm()) for r in ref)
+        assert off <= 2 * spread, (name, off, spread)
+    for i, st in enumerate(steps):
+        assert st["bwd"] == 1 and eager[0][1][i]["bwd"] == 1
+        assert st["launches"] == eager[0][1][i]["launches"], i
+    losses = [st["metrics"]["loss"] for st in steps]
+    assert len({float(x) for x in losses}) == 3
+    # another batch shape: eager, counted as a call and not as a replay
+    before = telemetry.tally()
+    _, metrics = step_fn(state, *(x[:b - 1] for x in batches[0]))
+    after = telemetry.tally()
+    assert np.isfinite(float(metrics["loss"]))
+    assert after["train.loss_calls"] - before["train.loss_calls"] == 1
+    assert after["train.loss_graphed"] == before["train.loss_graphed"]
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "lanes":
         _lane_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
