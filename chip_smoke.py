@@ -706,7 +706,9 @@ def train_noise(cfg, rng, device):
 def plain_train_ops():
     """Route the training kernel call sites (the trainable IOC, the NLL,
     the scene pool, the optimizer) to the plain versions, under autograd
-    (for timing the plain training step on the same card)."""
+    (for timing the plain training step on the same card). The plain
+    update of the card's flat optimizer state runs leaf by leaf on its
+    views, and its results go into fresh buffers in the state's layout."""
     from desire_tpu_torch import ops
     from desire_tpu_torch.ops import adam, ioc_fused, nll, scene_pool
     saved = ops.ioc_refine_train, ops.bivariate_nll_sum, ops.bilinear_pool
@@ -716,11 +718,17 @@ def plain_train_ops():
         refined, scores, iters = ioc_fused.ioc_refine_plain(
             *a, collect_iters=True, **kw)
         return refined, scores.to(a[3].dtype), iters
+
+    def clip_adam_plain(flat, grads, *args):
+        lay = flat.layout
+        p, m, v = (lay.views(x) for x in (flat.params, flat.mu, flat.nu))
+        new = adam.clip_adam_plain(p, grads, m, v, *args)
+        return adam.Flat(lay, *(lay.pack(x) for x in new))
     ops.ioc_refine_train = ioc_plain
     ops.bivariate_nll_sum = nll.bivariate_nll_plain
     ops.bilinear_pool = scene_pool.bilinear_pool_plain
     adam.global_norm = adam.global_norm_plain
-    adam.clip_adam = adam.clip_adam_plain
+    adam.clip_adam = clip_adam_plain
     try:
         yield
     finally:
@@ -860,7 +868,9 @@ def check_optimizer(cfg, params, rng, dev):
     norm and the update against ops.adam's plain version on the card, an
     unclipped and a clipped step (OPT_NORM_RTOL, OPT_TOL; the plain update
     with the kernel's norm bit for bit); the kernels alone on the card in
-    an update, no copy (torch.profiler). Returns (max abs errors of the
+    an update, no copy (torch.profiler). The state holds the params and
+    moments in its flat buffers (``TrainState.flat``); the plain version
+    takes the leaves they were copied from. Returns (max abs errors of the
     norm and of the update, {kernel: device ms}, plain ms of the norm and
     of the update, the wrapper's ms)."""
     from desire_tpu_torch.ops import adam

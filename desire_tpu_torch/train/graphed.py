@@ -14,12 +14,12 @@ The IOC between them (``desire.loss_refine``: ``ops.ioc_refine_train``,
 looked up at call time, whose backward calls
 ``ops.ioc_bwd.ioc_refine_bwd_cuda``) stays an eager call: a handful of
 launches, which a reader of the calls' device time ranges. A step copies
-its inputs into the graphs' static buffers (the parameters in one copy
-where they are the optimizer's flat buffer, ``ops.adam.flat_source``),
-replays the encode forward, runs the IOC forward, copies its outputs in,
-replays the tail's forward and backward, runs the IOC's backward (autograd
-from its outputs), copies its input gradients in and replays the encode
-backward. Each stage's outputs are the next one's inputs where both are
+its inputs into the graphs' static buffers (the parameters in one copy:
+the static params are a buffer in the layout of the state's
+``TrainState.flat``), replays the encode forward, runs the IOC forward,
+copies its outputs in, replays the tail's forward and backward, runs the
+IOC's backward (autograd from its outputs), copies its input gradients in
+and replays the encode backward. Each stage's outputs are the next one's inputs where both are
 graphs (the tail reads encode's outputs in place), cut from the
 preceding stage's autograd graph.
 
@@ -40,7 +40,8 @@ capture counted, so a graphed step counts what an eager one does
 The returned metrics are one copy of the tail's static outputs a step,
 and the gradients of the encode's parameters are the graph's static
 buffers, valid until the next step. On the CPU (tests) the stages run
-eagerly, as in the warm-up.
+eagerly, as in the warm-up, on the step's own leaves: no graph holds
+their addresses, so nothing is copied in.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from desire_tpu_torch.models import desire
-from desire_tpu_torch.ops import adam
 from desire_tpu_torch.train.state import tree_leaves, tree_unflatten
 from desire_tpu_torch.utils import telemetry
 
@@ -117,25 +117,21 @@ class GraphedLoss:
     """``desire_loss`` and its gradients for batches of one shape: the
     encode and tail stages as CUDA graphs, forward and backward, around
     the eager IOC (the module's docstring). ``capture`` once, then
-    ``forward`` and ``backward`` each step."""
+    ``forward`` and ``backward`` each step, from the training state
+    (``train.state.TrainState``) whose params the loss reads."""
 
-    def __init__(self, cfg, params, xy, mask, ids, img, noise):
+    def __init__(self, cfg, state, xy, mask, ids, img, noise):
         self.cfg = cfg
         self.shape = batch_shape(xy, img)
-        self.like = params
-        leaves = tree_leaves(params)
+        self.like = state.params
         dev = xy.device
-        if dev.type == "cuda":
-            # the optimizer's layout: its new params arrive in one copy
-            self.starts, total = adam.flat_layout(leaves)
-            self.flat = torch.empty(total, dtype=torch.float32, device=dev)
-            self.leaves = [self.flat[s:s + x.numel()].view(x.shape)
-                           for s, x in zip(self.starts, leaves)]
-        else:
-            self.flat = None
-            self.leaves = [torch.empty_like(x) for x in leaves]
-        for x in self.leaves:
-            x.requires_grad_(True)
+        self.flat = self.leaves = None
+        if state.flat is not None:
+            # the static params: a buffer in the layout of the state's,
+            # whose params arrive in one copy
+            self.flat = torch.empty_like(state.flat.params)
+            self.leaves = [x.requires_grad_(True)
+                           for x in state.flat.layout.views(self.flat)]
         batch = {"xy": xy, "mask": mask, "ids": ids, "img": img}
         batch.update((k, noise.get(k)) for k in _NOISE)
         if batch["lane_u"] is None or batch["eps"] is None or (
@@ -250,25 +246,23 @@ class GraphedLoss:
     # -- a step ----------------------------------------------------------
 
     @torch.no_grad()
-    def _copy_in(self, state_leaves, xy, mask, ids, img, noise, step):
-        src = (None if self.flat is None else
-               adam.flat_source(state_leaves, self.starts, self.flat.numel()))
-        if src is not None:
-            self.flat.copy_(src)
+    def _copy_in(self, state, params, xy, mask, ids, img, noise):
+        if self.flat is None:
+            # eager stages (the CPU): no graph holds the leaves' addresses
+            self.leaves = tree_leaves(params)
         else:
-            for dst, x in zip(self.leaves, state_leaves):
-                dst.copy_(x)
+            self.flat.copy_(state.flat.params)
         batch = {"xy": xy, "mask": mask, "ids": ids, "img": img}
         for k, dst in self.inputs.items():
             dst.copy_(batch[k] if k in batch else noise[k])
-        self.step.fill_(float(step))
+        self.step.fill_(float(state.step))
 
-    def forward(self, state_leaves, params, xy, mask, ids, img, noise, step):
-        """The loss of the batch at the state's parameters
-        ``state_leaves``: copy in, encode, the IOC on ``params`` (the
-        step's tree of leaves that take gradients), the tail. Returns the
-        metrics, one fresh copy."""
-        self._copy_in(state_leaves, xy, mask, ids, img, noise, step)
+    def forward(self, state, params, xy, mask, ids, img, noise):
+        """The loss of the batch at the params of ``state``, at its step:
+        copy in, encode, the IOC on ``params`` (the step's tree of leaves
+        that take gradients), the tail. Returns the metrics, one fresh
+        copy."""
+        self._copy_in(state, params, xy, mask, ids, img, noise)
         self._run("encode_fwd")
         self._refine_fwd(params)
         self._run("tail_fwd")
@@ -295,15 +289,14 @@ class GraphedLoss:
                 out.append(o if e is None else e if o is None else e + o)
         return out
 
-    def capture(self, state_leaves, params, xy, mask, ids, img, noise,
-                step):
+    def capture(self, state, params, xy, mask, ids, img, noise):
         """Warm up and capture the four graphs, from the first step's
         arguments (``forward``'s). A capture that fails raises."""
         dev = xy.device
         before = telemetry.tally()
         # the warm-up on the step's stream, whose cached memory later eager
         # work reuses
-        self._copy_in(state_leaves, xy, mask, ids, img, noise, step)
+        self._copy_in(state, params, xy, mask, ids, img, noise)
         for _ in range(WARMUP):
             # the captured stages, eagerly; the IOC's forward gives the
             # tail its inputs, and its backward is left out (the encode's

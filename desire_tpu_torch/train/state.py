@@ -16,9 +16,9 @@ optimizers:
 
 Parameters are a tree (nested dicts and lists) of float32 tensors; each
 update returns a new tree and leaves the old one as it was. The norm, the
-clip and Adam run in ``ops.adam``: on CUDA leaves two kernel launches for
-the whole tree (the new trees views of three flat buffers), on the CPU
-the plain version leaf by leaf.
+clip and Adam run in ``ops.adam``: on the card two kernel launches for
+the whole tree, the state's trees views of three flat buffers
+(``TrainState.flat``); on the CPU the plain version leaf by leaf.
 """
 
 from __future__ import annotations
@@ -64,13 +64,49 @@ def global_norm(leaves):
 class TrainState:
     """step: updates taken; params: the parameter tree; mu, nu: Adam's
     moments (same tree); count: the optimizer's update count; generator:
-    the source of every random draw of the training steps."""
+    the source of every random draw of the training steps.
+
+    flat: on the card the optimizer's state (``adam.Flat``), of whose
+    three buffers params, mu and nu are the trees of views; None on the
+    CPU. A state made on the card without it copies its trees into fresh
+    buffers in the tree's layout, so that every state there is flat."""
     step: int
     params: dict
     mu: dict
     nu: dict
     count: int
     generator: torch.Generator
+    flat: adam.Flat | None = None
+
+    def __post_init__(self):
+        if self.flat is not None:
+            return
+        leaves = tree_leaves(self.params)
+        if not leaves[0].is_cuda:
+            return
+        lay = adam.layout(tuple(x.shape for x in leaves))
+        self.flat = adam.Flat(lay, lay.pack(leaves),
+                              lay.pack(tree_leaves(self.mu)),
+                              lay.pack(tree_leaves(self.nu)))
+        self.params, self.mu, self.nu = _trees(self.params, self.flat)
+
+
+def _trees(like, flat):
+    """The (params, mu, nu) trees shaped like ``like`` of the views of the
+    buffers of ``flat``."""
+    return tuple(tree_unflatten(like, flat.layout.views(x))
+                 for x in (flat.params, flat.mu, flat.nu))
+
+
+class Update(tuple):
+    """``apply_updates``' (params, mu, nu, count) of the new state, with
+    ``flat``: on the card the new ``adam.Flat``, whose buffers the three
+    trees view; None on the CPU."""
+
+    def __new__(cls, params, mu, nu, count, flat=None):
+        self = super().__new__(cls, (params, mu, nu, count))
+        self.flat = flat
+        return self
 
 
 def learning_rate(cfg: DesireConfig, steps_per_epoch: int, count: int):
@@ -83,10 +119,10 @@ def learning_rate(cfg: DesireConfig, steps_per_epoch: int, count: int):
 
 def create_train_state(cfg: DesireConfig, params, seed=None) -> TrainState:
     """Fresh state: step 0, zero moments, a generator seeded with ``seed``
-    (cfg.seed by default) on the params' device."""
+    (cfg.seed by default) on the params' device. On the card the state's
+    params are a copy of ``params`` (``TrainState.flat``)."""
     leaves = tree_leaves(params)
-    dev = leaves[0].device
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device=leaves[0].device)
     gen.manual_seed(cfg.seed if seed is None else int(seed))
     zeros = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
     zeros2 = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
@@ -96,20 +132,24 @@ def create_train_state(cfg: DesireConfig, params, seed=None) -> TrainState:
 
 @torch.no_grad()
 def apply_updates(cfg: DesireConfig, steps_per_epoch: int,
-                  state: TrainState, grads, g_norm=None):
-    """One optimizer update from the gradient tree ``grads``. g_norm: their
-    global norm (``global_norm``), computed here when not given. Returns
-    (params, mu, nu, count) of the new state."""
-    p_l, g_l = tree_leaves(state.params), tree_leaves(grads)
-    m_l, v_l = tree_leaves(state.mu), tree_leaves(state.nu)
+                  state: TrainState, grads, g_norm=None) -> Update:
+    """One optimizer update from the gradients ``grads``, a tree like the
+    params or its leaves in ``tree_leaves`` order. g_norm: their global
+    norm (``global_norm``), computed here when not given. Returns the
+    ``Update`` (params, mu, nu, count) of the new state, in fresh memory:
+    ``state`` is left as it was."""
+    g_l = tree_leaves(grads)
     if g_norm is None:
         g_norm = global_norm(g_l)
     count = state.count + 1
     lr = learning_rate(cfg, steps_per_epoch, state.count)
     bc1 = 1.0 - torch.tensor(B1, dtype=torch.float32) ** count
     bc2 = 1.0 - torch.tensor(B2, dtype=torch.float32) ** count
-    new_p, new_m, new_v = adam.clip_adam(p_l, g_l, m_l, v_l, g_norm,
-                                         float(cfg.grad_clip), lr, bc1, bc2)
-    return (tree_unflatten(state.params, new_p),
-            tree_unflatten(state.params, new_m),
-            tree_unflatten(state.params, new_v), count)
+    args = (g_norm, float(cfg.grad_clip), lr, bc1, bc2)
+    if state.flat is not None:
+        flat = adam.clip_adam(state.flat, g_l, *args)
+        return Update(*_trees(state.params, flat), count, flat)
+    new = adam.clip_adam_plain(tree_leaves(state.params), g_l,
+                               tree_leaves(state.mu), tree_leaves(state.nu),
+                               *args)
+    return Update(*(tree_unflatten(state.params, x) for x in new), count)

@@ -118,8 +118,8 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
                                           device=xy.device).reshape(
                 -1, 1, 1, 1))
             xy = torch.clamp(0.5 + (xy - 0.5) * s, 0.0, 1.0)
-        state_leaves = tree_leaves(state.params)
-        leaves = [x.detach().requires_grad_(True) for x in state_leaves]
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
         shape = graphed_mod.batch_shape(xy, img)
         use_graphs = graphed_mod.engages(
@@ -128,12 +128,11 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
         batch = (xy, mask, ids, img, noise)
         if use_graphs and graphed is None:
             with telemetry.span("setup.train_graphs"):
-                graphed = graphed_mod.GraphedLoss(cfg, state.params, *batch)
-                graphed.capture(state_leaves, params, *batch, state.step)
+                graphed = graphed_mod.GraphedLoss(cfg, state, *batch)
+                graphed.capture(state, params, *batch)
         with telemetry.span("train.forward"):
             if use_graphs:
-                metrics = graphed.forward(state_leaves, params, *batch,
-                                          state.step)
+                metrics = graphed.forward(state, params, *batch)
             else:
                 total, metrics = desire.desire_loss(
                     params, cfg, xy, mask, ids, step=state.step,
@@ -158,9 +157,8 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
         with telemetry.span("train.optimizer"):
             # the norm taken once: the metric is the one the clip uses
             metrics["grad_norm"] = g_norm = global_norm(grads)
-            p, mu, nu, count = apply_updates(
-                cfg, steps_per_epoch, state,
-                tree_unflatten(state.params, grads), g_norm=g_norm)
+            new = apply_updates(cfg, steps_per_epoch, state, grads,
+                                g_norm=g_norm)
         if use_graphs:
             # the host runs at most one step ahead of the card: it waits
             # here for the step before this one, and not at a launch of
@@ -171,8 +169,9 @@ def make_train_step(cfg: DesireConfig, steps_per_epoch: int,
                 with telemetry.span("train.wait"):
                     pending.synchronize()
             pending = done
+        p, mu, nu, count = new
         return TrainState(step=state.step + 1, params=p, mu=mu, nu=nu,
-                          count=count, generator=gen), metrics
+                          count=count, generator=gen, flat=new.flat), metrics
 
     return step_fn
 

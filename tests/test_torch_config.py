@@ -96,8 +96,7 @@ def test_port_imports_no_jax():
     training, evaluation and forecasting entry points, the serving bench,
     the headline bench and the constant-velocity baseline by name, the
     reference facade and the toy example),
-    chip_smoke, chip_time_training and chip_time_serving, and then neither
-    jax nor desire_tpu is loaded."""
+    and chip_smoke, and then neither jax nor desire_tpu is loaded."""
     code = """
 import importlib, pkgutil, sys
 import desire_tpu_torch
@@ -116,8 +115,6 @@ import desire_tpu_torch.examples.toy_gaussian
 for m in pkgutil.walk_packages(desire_tpu_torch.__path__, "desire_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-import chip_time_training
-import chip_time_serving
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "desire_tpu" or n.startswith("desire_tpu."))
@@ -130,27 +127,3 @@ print(len([n for n in sys.modules if n.startswith("desire_tpu_torch")]))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 25
-
-
-def test_timing_script_needs_a_card():
-    """chip_time_training.py without a CUDA device: exit code 2, a message
-    on standard error and no timing line."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    out = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "chip_time_training.py")],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2
-    assert "no CUDA device" in out.stderr and out.stdout == ""
-
-
-def test_serving_timing_script_needs_a_card():
-    """chip_time_serving.py without a CUDA device: exit code 2, a message
-    on standard error and no timing line."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    out = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "chip_time_serving.py")],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2
-    assert "no CUDA device" in out.stderr and out.stdout == ""

@@ -1281,6 +1281,120 @@ def test_graphed_step_matches_the_eager_step(cuda_device, widths,
     assert after["train.loss_graphed"] == before["train.loss_graphed"]
 
 
+def _check_flat(st):
+    """The state's params, mu and nu are views of one buffer each of its
+    ``flat``, at the layout's starts; the three buffers are distinct."""
+    flat = st.flat
+    bufs = (flat.params, flat.mu, flat.nu)
+    assert len({b.data_ptr() for b in bufs}) == 3
+    for name, buf in zip(("params", "mu", "nu"), bufs):
+        leaves = tree_leaves(getattr(st, name))
+        assert buf.numel() == flat.layout.total
+        assert [x.data_ptr() for x in leaves] == [
+            buf.data_ptr() + 4 * s for s in flat.layout.starts], name
+        assert all(x.untyped_storage().data_ptr()
+                   == buf.untyped_storage().data_ptr() for x in leaves), name
+
+
+@pytest.mark.cuda
+def test_train_state_is_flat_on_the_card(cuda_device, tmp_path,
+                                         monkeypatch):
+    """After create_train_state, three steps and a checkpoint restore, the
+    state's params, mu and nu are views of one buffer each, its values
+    restored bit for bit; adam_layout is asked once for the tree's shape,
+    not once a launch."""
+    from desire_tpu_torch.data.loader import LoaderState
+    from desire_tpu_torch.ops import adam
+    from desire_tpu_torch.train.checkpoint import CheckpointManager
+    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.train.trainer import make_train_step
+    lib = _build.library()
+    asked = []
+    real = lib.adam_layout
+
+    def counted(*a):
+        asked.append(a[0])
+        return real(*a)
+    monkeypatch.setattr(lib, "adam_layout", counted)
+    adam.layout.cache_clear()
+    try:
+        cfg = _cfg(batch_size=2)
+        state = create_train_state(cfg, _params(cfg, cuda_device), seed=0)
+        _check_flat(state)
+        step_fn = make_train_step(cfg, steps_per_epoch=10)
+        rng = np.random.default_rng(0)
+        b, t, a = 2, cfg.total_len, cfg.max_num_obj
+        xy = torch.as_tensor(rng.uniform(0.3, 0.7, (b, t, a, 2)).astype(
+            np.float32), device=cuda_device)
+        mask = torch.ones((b, t, a), device=cuda_device)
+        ids = torch.arange(1, a + 1, device=cuda_device).float().repeat(b, 1)
+        for _ in range(3):
+            state, _ = step_fn(state, xy, mask, ids)
+            _check_flat(state)
+        mgr = CheckpointManager(str(tmp_path / "ck"))
+        assert mgr.save(state, LoaderState(0, 3), cfg)
+        got, _ = mgr.restore(create_train_state(
+            cfg, _params(cfg, cuda_device), seed=1))
+        _check_flat(got)
+        for name in ("params", "mu", "nu"):
+            assert all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(getattr(state, name)),
+                tree_leaves(getattr(got, name)))), name
+        assert len(asked) == 1
+    finally:
+        adam.layout.cache_clear()
+
+
+@pytest.mark.cuda
+def test_graphed_step_copies_the_params_in_one_copy(cuda_device,
+                                                     monkeypatch):
+    """From its first step (the capture's warm-up and the step itself),
+    the graphed loss copies the state's params into its static params in
+    one copy of the state's flat buffer; its other copies are the batch
+    and the draws."""
+    from torch.overrides import TorchFunctionMode
+
+    from desire_tpu_torch import bench
+    from desire_tpu_torch.train import graphed, trainer
+    from desire_tpu_torch.train.state import create_train_state
+    from desire_tpu_torch.utils import telemetry
+    cfg = bench.flagship_cfg().replace(social_freeze=False, **FLAGSHIP_TOY)
+    calls = []
+
+    class Copies(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.copy_:
+                calls[-1][1].append(args)
+            return func(*args, **(kwargs or {}))
+    copy_in = graphed.GraphedLoss._copy_in
+
+    def recorded(self, state, *a):
+        calls.append((self, [], state))
+        with Copies():
+            return copy_in(self, state, *a)
+    monkeypatch.setattr(graphed.GraphedLoss, "_copy_in", recorded)
+    state = create_train_state(cfg, _params(cfg, cuda_device), seed=0)
+    step_fn = trainer.make_train_step(cfg, steps_per_epoch=10)
+    b, t, a = cfg.batch_size, cfg.total_len, cfg.max_num_obj
+    rng = np.random.default_rng(2)
+    xy = torch.as_tensor(rng.uniform(0.3, 0.7, (b, t, a, 2)).astype(
+        np.float32), device=cuda_device)
+    mask = torch.ones((b, t, a), device=cuda_device)
+    ids = torch.arange(1, a + 1, device=cuda_device).float().repeat(b, 1)
+    before = telemetry.tally()
+    for _ in range(2):
+        state, _ = step_fn(state, xy, mask, ids)
+    after = telemetry.tally()
+    assert after["train.loss_graphed"] - before.get("train.loss_graphed",
+                                                    0) == 2
+    # the first step's warm-up and forward, then the second step's forward
+    assert len(calls) == 3
+    for loss, copies, st in calls:
+        params = [c for c in copies if c[0] is loss.flat]
+        assert len(params) == 1 and params[0][1] is st.flat.params
+        assert len(copies) == 1 + len(loss.inputs)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "lanes":
         _lane_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])

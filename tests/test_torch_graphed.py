@@ -5,6 +5,8 @@ that does not, the loss's stages run apart as the graphs run them against
 losses. The graphs themselves run on the card
 (``tests/test_torch_cuda.py``)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -122,6 +124,7 @@ def test_stages_give_desire_loss_bit_for_bit(cfg_kw):
     xy, mask, ids = _batch(cfg)
     noise = trainer.step_noise(cfg, torch.Generator().manual_seed(3),
                                xy.shape, "cpu")
+    state = tstate.create_train_state(cfg, p)
     for step in (0, 37, 500):
         got = []
         for how in ("loss", "forward_and_tail", "stages"):
@@ -129,9 +132,9 @@ def test_stages_give_desire_loss_bit_for_bit(cfg_kw):
                       for x in tstate.tree_leaves(p)]
             params = tstate.tree_unflatten(p, leaves)
             if how == "stages":
-                g = graphed.GraphedLoss(cfg, p, xy, mask, ids, None, noise)
-                metrics = g.forward(tstate.tree_leaves(p), params, xy, mask,
-                                    ids, None, noise, step)
+                st = dataclasses.replace(state, step=step)
+                g = graphed.GraphedLoss(cfg, st, xy, mask, ids, None, noise)
+                metrics = g.forward(st, params, xy, mask, ids, None, noise)
                 grads = g.backward(leaves)
             else:
                 if how == "loss":

@@ -4,6 +4,7 @@ training branch, desire_loss (total, metrics and every parameter
 gradient), the optimizer against optax, one whole training step, and the
 epoch loop."""
 
+import ctypes
 import functools
 import os
 
@@ -276,6 +277,108 @@ def test_apply_updates_with_a_given_norm(clip):
         for x, y in zip(tstate.tree_leaves(a_tree),
                         tstate.tree_leaves(b_tree)):
             assert torch.equal(x, y)
+
+
+def test_apply_updates_leaves_the_state_it_was_given():
+    """An update on the plain path (CPU leaves) returns new trees in fresh
+    memory and leaves the params, mu and nu of the state it was given bit
+    for bit (a step that hands back its input state, and the graphed
+    loss's copy-in, rely on it); the gradients as the tree or as its
+    leaves give the same update."""
+    cfg = _cfg(learning_rate=1e-2)
+    rng = np.random.default_rng(8)
+    params = {"a": {"w": _torch(rng.standard_normal((3, 4)))},
+              "l": [_torch(rng.standard_normal(5)), _torch(0.3)]}
+
+    def grads():
+        return tstate.tree_unflatten(params, [
+            _torch(rng.standard_normal(x.shape))
+            for x in tstate.tree_leaves(params)])
+    st = tstate.create_train_state(cfg, params)
+    p, mu, nu, count = tstate.apply_updates(cfg, 2, st, grads())
+    st = tstate.TrainState(1, p, mu, nu, count, st.generator)
+    trees = lambda s: [tstate.tree_leaves(t) for t in (s.params, s.mu,
+                                                        s.nu)]
+    before = [[x.clone() for x in leaves] for leaves in trees(st)]
+    g = grads()
+    new = tstate.apply_updates(cfg, 2, st, g)
+    again = tstate.apply_updates(cfg, 2, st, tstate.tree_leaves(g))
+    assert new.flat is None and new[3] == again[3] == 2
+    for old, kept, got, got2 in zip(before, trees(st), new[:3], again[:3]):
+        got, got2 = tstate.tree_leaves(got), tstate.tree_leaves(got2)
+        assert all(torch.equal(x, y) for x, y in zip(old, kept))
+        assert all(torch.equal(x, y) for x, y in zip(got, got2))
+        assert all(x.data_ptr() != y.data_ptr() for x, y in zip(kept, got))
+        assert not any(torch.equal(x, y) for x, y in zip(kept, got))
+
+
+class _AdamLibrary:
+    """The kernel library's adam_layout by csrc/adam.cu's rule (each
+    leaf's size rounded up to 4 values, blocks of 4096 values, 1 to 256
+    leaves), counting its calls."""
+    calls = 0
+
+    @classmethod
+    def adam_layout(cls, n, size, start):
+        cls.calls += 1
+        if n < 1 or n > 256:
+            return -1
+        sizes = np.ctypeslib.as_array(
+            (ctypes.c_longlong * n).from_address(size))
+        out = np.ctypeslib.as_array(
+            (ctypes.c_longlong * (n + 1)).from_address(start))
+        out[0] = 0
+        out[1:] = np.cumsum((sizes + 3) // 4 * 4)
+        return (int(out[n]) + 4095) // 4096
+
+
+def test_flat_layout_puts_each_leaf_at_its_aligned_start(monkeypatch):
+    """The optimizer's flat layout, made once a tree shape from the
+    library's adam_layout: each leaf a view at its start in one buffer,
+    16-byte aligned, the padding zero, the pointers the leaves'; the
+    three trees of a state over three buffers; leaves of another dtype or
+    shape, or more than 256 of them, refused."""
+    from desire_tpu_torch.ops import _build, adam
+    monkeypatch.setattr(_build, "library", _AdamLibrary)
+    adam.layout.cache_clear()
+    try:
+        shapes = ((3, 4), (5,), (), (2, 3, 7), (4097,))
+        calls = _AdamLibrary.calls
+        lay = adam.layout(shapes)
+        assert adam.layout(tuple(torch.Size(s) for s in shapes)) is lay
+        assert _AdamLibrary.calls == calls + 1
+        assert lay.starts == [0, 12, 20, 24, 68]
+        assert (lay.total, lay.blocks) == (68 + 4100, 2)
+        rng = np.random.default_rng(3)
+        like = {"a": [_torch(rng.standard_normal(s)) for s in shapes[:2]],
+                "b": {"c": _torch(rng.standard_normal(shapes[2])),
+                      "d": [_torch(rng.standard_normal(s))
+                            for s in shapes[3:]]}}
+        leaves = tstate.tree_leaves(like)
+        flat = adam.Flat(lay, *(lay.pack([k * x for x in leaves])
+                                for k in (1.0, 2.0, 3.0)))
+        trees = tstate._trees(like, flat)
+        for k, buf, tree in zip((1.0, 2.0, 3.0), flat[1:], trees):
+            views = tstate.tree_leaves(tree)
+            assert [x.data_ptr() for x in views] == [
+                buf.data_ptr() + 4 * s for s in lay.starts]
+            assert list(lay.pointers(buf)) == [x.data_ptr() for x in views]
+            assert all(x.data_ptr() % 16 == 0 for x in views)
+            assert all(x.untyped_storage().data_ptr()
+                       == buf.untyped_storage().data_ptr() for x in views)
+            assert all(torch.equal(x, k * y) for x, y in zip(views, leaves))
+            pad = torch.ones(lay.total, dtype=torch.bool)
+            for s, x in zip(lay.starts, views):
+                pad[s:s + x.numel()] = False
+            assert pad.sum() == 3 + 3 + 2 + 3 and not buf[pad].any()
+        with pytest.raises(ValueError, match="float32"):
+            lay.pack([x.double() for x in leaves])
+        with pytest.raises(ValueError, match="shapes"):
+            lay.pack(leaves[::-1])
+        with pytest.raises(ValueError, match="kMaxLeaves"):
+            adam.layout(((1,),) * 257)
+    finally:
+        adam.layout.cache_clear()
 
 
 def test_train_step_grad_norm_is_the_norm_the_clip_used(jax_params,
