@@ -1060,6 +1060,11 @@ def training_phase(dev, smi, rng):
             raise AssertionError(f"{label}: grad_sumsq and clip_adam "
                                  f"launched {got['grad_sumsq']} and "
                                  f"{got['clip_adam']} times (want {steps})")
+        # the IOC backward's weight-gradient product: once a backward call
+        if got["ioc_bwd_wgrad"] != got["ioc_refine_bwd"]:
+            raise AssertionError(f"{label}: ioc_bwd_wgrad launched "
+                                 f"{got['ioc_bwd_wgrad']} times, the IOC "
+                                 f"backward {got['ioc_refine_bwd']}")
 
     # -- 6f. timing -----------------------------------------------------------
     print(f"training timing on {smi} (CUDA events, median):", flush=True)
@@ -1109,6 +1114,20 @@ def training_phase(dev, smi, rng):
     nll_graph = nll.bivariate_nll_plain(r, target, mask_n)
     t_nb_p = time_ms(lambda: torch.autograd.grad(nll_graph, [r], g,
                                                  retain_graph=True))
+    # the backward's two kernels apart (device time), the weight-gradient
+    # product beside its floor: its operand log read once
+    log_bytes = 2 * (b * cfg.num_samples * (cfg.num_refine + 1)
+                     * cfg.pred_len * -(-cfg.max_num_obj // 16) * 16
+                     * (cfg.scene_channels + 7 * cfg.d_dim + 16))
+    for freeze in (False, True):
+        split = device_ms_by_kernel(lambda: ioc_bwd.ioc_refine_bwd_cuda(
+            *bwd_args[freeze], weights=wb, **kws[freeze]), calls=3)
+        wg = sum(v for n, v in split.items() if "wgrad" in n)
+        print(f"ioc_refine_bwd (social_freeze={freeze}) device ms by kernel "
+              f"{ {n: round(v, 4) for n, v in split.items()} }; the "
+              f"weight-gradient product {wg:.4f} against its byte floor "
+              f"{log_bytes / HBM_BYTES_S * 1e3:.4f} ({log_bytes / 2**30:.3f} "
+              f"GiB of operand log)", flush=True)
     for name, t_k, t_p in (("ioc_refine_train", t_fwd, t_fwd_p),
                            ("ioc_refine_bwd", t_bwd[False], t_bwd_p[False]),
                            ("ioc_refine_bwd_social_freeze", t_bwd[True],

@@ -38,12 +38,17 @@
 // arithmetic. A block runs (R + 1) passes x 2 sweeps x T steps, each step a
 // handful of small products over the lane's A agents between block
 // barriers, and shared memory (one block per SM) leaves no second block to
-// fill the waits. What a step waits for, in the order it was measured: the
-// device-memory round trips (the per-step workspace, the cotangents and
-// the weight-gradient partials that are read, added to and written back),
-// the chains of dependent shared-memory reads and shuffles in the per-agent
-// phases, and the weight fragments of the products, which come from device
-// memory (L2) for every work item.
+// fill the waits. What a step waits for: the weight fragments of the
+// products, which come from device memory (L2) for every work item, the
+// chains of dependent shared-memory reads and shuffles in the per-agent
+// phases, and the cotangents d_dec and d_msg that are read, added to and
+// written back in device memory. With kMma the weight gradients of the
+// GRU's two matrices are off that chain (each reverse step only logs its
+// operand tiles, and a second kernel, bound by the bytes of that log, forms
+// both after the passes), and so are the step's reads of what it saved
+// (asked for a phase ahead by cp.async). The kernel is also bound by its
+// registers: one block of 384 threads an SM leaves 168 a thread, and most
+// of the kernel runs within ~30 of that (see tid_here).
 //
 // What the design does:
 // * One block per (batch row, lane) holds all A agents of the lane, as the
@@ -62,36 +67,54 @@
 //   social cotangent, the rounded gate cotangents R, the rounded GRU state
 //   and the rounded attention) lives in shared memory once, as bf16 operand
 //   tiles with rows padded to 16 and strides that ldmatrix reads without
-//   bank conflicts, plain or transposed: the weight gradients X^T R and
-//   h^T R, the social pool att msg, its adjoints att^T ds and ds msg^T need
-//   no transposed copy. Products with a weight matrix load all the weight
-//   fragments of a work item before its first mma (one wait per item).
-//   Only what element-wise math reads stays float32 (the gate cotangents G,
-//   the GRU state, the attention and its cotangent). Otherwise (float32, or
-//   other d and C) the products run on the CUDA cores, each thread a small
-//   register tile of outputs (tile_mm), on float32 tiles.
+//   bank conflicts, plain or transposed: the social pool att msg, its
+//   adjoints att^T ds and ds msg^T need no transposed copy. Products with a
+//   weight matrix load all the weight fragments of a work item before its
+//   first mma (one wait per item). Only what element-wise math reads stays
+//   float32 (the gate cotangents G, the GRU state, the attention and its
+//   cotangent). Otherwise (float32, or other d and C) the products run on
+//   the CUDA cores, each thread a small register tile of outputs (tile_mm),
+//   on float32 tiles.
+// * The weight gradients of the input and hidden matrices (kMma): d Wi =
+//   sum X^T R and d Wh = sum hr^T R over every (pass, step, agent) of every
+//   block are one product whose depth is all those rows. Each reverse step
+//   writes its three tiles X, hr and R, as they are, to the block's operand
+//   log in device memory (16-byte streaming stores, ~49 KB a step at the
+//   flagship; this kernel never reads them back), in the barrier interval
+//   of its products. After the kernel, on the same stream,
+//   ioc_bwd_wgrad_kernel streams the whole log (~3.8 GB at the flagship)
+//   once through the tensor cores. The step keeps no weight-gradient item,
+//   no read-modify-write of a partial in device memory and no partial of
+//   the hidden matrix in shared memory.
 // * 16-byte accesses (kMma): the workspace, dec_h, msg and the feature map
 //   are read and written as 16-byte pieces, four (or eight bf16) channels
-//   of an agent per thread; a reverse step's load phase and its GRU adjoint
-//   share one barrier interval. More loads in flight per thread (the
-//   adjoint's values asked for ahead of the attention, a step's rows staged
-//   in one batch) timed slower, as did a larger block.
+//   of an agent per thread. What a step reads from device memory as it is
+//   (dec_h, the messages, the scene and social blocks, which the workspace
+//   keeps in bf16, the saved gates, the heads' cotangents, the previous GRU
+//   state) is asked for by cp.async a phase or more before the step, into
+//   the shared memory it is read from, so that no thread waits for it on
+//   the chain: the forward sweep asks for step t + 1's once step t's input
+//   gates have read X, the reverse sweep for step t - 1's once step t's
+//   products and pooling adjoint are done. More loads in flight per thread
+//   into registers (the adjoint's values asked for ahead of the attention,
+//   a step's rows staged in one batch) timed slower, as did a larger block.
 // * The per-agent phases (attention, its adjoint, position and velocity
 //   cotangents) give a row to 4 lanes, 8 rows a warp at once, instead of a
 //   warp per row with the rows one after another.
 // * Deterministic, with no atomics: every weight gradient has one owner,
 //   which forms the step's agent sum on its own (a zeroed accumulator) and
 //   adds it to the block's partial, in a fixed (pass, step) order. The
-//   partials of the biases and the heads, and with kMma of the hidden
-//   matrix, stay in shared memory until the passes are done; the input
-//   matrix's (75 KB at the flagship) does not fit and is read, added to and
-//   written back in device memory every step, the largest single cost that
-//   is left. d_dec and d_msg are written by the first pass and added to by
-//   the later ones. The feature-map gradient is gathered after the passes
-//   into shared memory, each (node, channel) owned by one thread that walks
-//   (pass, step, agent, corner) in order over entries staged in shared
-//   memory chunk by chunk. The wrapper sums the per-block partials in a
-//   fixed order, as the TPU wrapper sums its per-program partials.
+//   partials of the biases and the heads stay in shared memory until the
+//   passes are done; without mma those of the input and hidden matrices are
+//   read, added to and written back in device memory every step (with mma
+//   the product kernel's fixed slices and the wrapper's fixed sum order
+//   stand in for that order). d_dec and d_msg are written by the first
+//   pass and added to by the later ones. The feature-map gradient is
+//   gathered after the passes into shared memory, each (node, channel)
+//   owned by one thread that walks (pass, step, agent, corner) in order
+//   over entries staged in shared memory chunk by chunk. The wrapper sums
+//   the per-block partials in a fixed order, as the TPU wrapper sums its
+//   per-program partials.
 // * Numerics follow the TPU kernel: products round their operands to the
 //   compute dtype and accumulate in float32; element-wise math, the social
 //   softmax and its adjoint stay float32.
@@ -105,9 +128,22 @@ namespace {
 // Threads of a block. One block fills an SM's shared memory, so this is also
 // the SM's thread count: 12 warps, which leaves each thread 168 registers
 // (16 warps spilled at 128 and timed slower, as did 8, 10, 11, 14, 20 and
-// 24), and divides the flagship's product items evenly (36 input-gate and
-// 36 weight-gradient items, 24 hidden-cotangent items).
+// 24), and divides the flagship's product items evenly (36 items each of the
+// input and hidden gates, 12 of the hidden cotangent: two 16-row tiles an
+// item, which timed faster than one).
 constexpr int kBwdThreads = 384;
+
+// threadIdx.x, opaque to the compiler where it is read: what is derived from
+// it (a loop's first index, a lane's fragment offsets) is computed where it
+// is used instead of being hoisted out of the pass loop, where each such
+// value held a register for the whole kernel. The backward kernel runs at
+// its register limit; with the thread index read once, the tensor-core
+// variant spilled (12 to 140 bytes by variant) and timed up to 20 % slower.
+__device__ __forceinline__ int tid_here() {
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));
+  return t;
+}
 
 // Shared-memory layout. X holds a step's score-GRU input blocks per agent,
 // each already rounded to the compute dtype; G and R hold the gate
@@ -118,9 +154,11 @@ constexpr int kBwdThreads = 384;
 // stages its gate products in G as [r: input + hidden | z: input + hidden |
 // n: input | n: hidden]. small holds the block's partials of the bias and
 // head gradients [d bi (3d) | d bh (3d) | d heads (d, 4) | d heads' bias
-// (4)], dwh (mma only, where there is room) that of the hidden matrix
-// (d, 3d). After the passes, once these are written out, the feature-map
-// accumulator (G * G * C) reuses the whole region.
+// (4)]. After the passes, once these are written out, the feature-map
+// accumulator (G * G * C) reuses the whole region. With mma G's rows (and
+// dsc's) are padded by four floats: a warp's accesses of 8 rows x 4 columns
+// then spread over the banks (with rows of 4d or C floats, a multiple of
+// 32, they fell on the same ones).
 //
 // What only products read (X, msg, dsoc, R, and with mma the rounded GRU
 // state hr and the rounded attention attb) is an operand tile. With mma
@@ -134,14 +172,14 @@ constexpr int kBwdThreads = 384;
 struct BwdLayout {
   int lx, lg, lm, lr, la, rows;
   size_t x, y, gx, gy, fmask, live, nbok, gsc, ltrow, veld, dout, small;
-  size_t hc, hn, dsc, att, dl, G, X, msg, dsoc, R, hr, attb, dwh, tiles_end;
+  size_t hc, hn, dsc, att, dl, G, X, msg, dsoc, R, hr, attb, tiles_end;
   size_t total;
   __host__ __device__ BwdLayout(int A, int T, int d, int C, int Gr,
                                 bool mma) {
     const size_t f = 4, o = mma ? 2 : 4;
     rows = mma ? (A + 15) / 16 * 16 : A;
     lx = mma ? mma_stride(C + 2 * d + 16) : 2 + C + 2 * d;
-    lg = 4 * d;
+    lg = mma ? 4 * d + 4 : 4 * d;
     lm = mma ? mma_stride(d) : d;
     lr = mma ? mma_stride(4 * d) : 4 * d;
     la = mma_stride(rows);
@@ -160,7 +198,7 @@ struct BwdLayout {
     small = b.take((size_t)(10 * d + 4) * f);
     hc = b.take((size_t)A * d * f);
     hn = b.take((size_t)A * d * f);
-    dsc = b.take((size_t)A * C * f);
+    dsc = b.take((size_t)A * (mma ? C + 4 : C) * f);
     att = b.take((size_t)A * A * f);
     dl = b.take((size_t)A * A * f);
     G = b.take((size_t)A * lg * f);
@@ -168,11 +206,10 @@ struct BwdLayout {
     msg = b.take((size_t)rows * lm * o);
     dsoc = b.take((size_t)rows * lm * o);
     R = b.take((size_t)rows * lr * o);
-    hr = attb = dwh = b.off;
+    hr = attb = b.off;
     if (mma) {
       hr = b.take((size_t)rows * lm * 2);
       attb = b.take((size_t)rows * la * 2);
-      dwh = b.take((size_t)d * 3 * d * f);
     }
     tiles_end = (b.off + 15) & ~size_t(15);
     total = tiles_end;
@@ -181,16 +218,44 @@ struct BwdLayout {
   }
 };
 
-// Float32 words of one block's device-memory workspace: the GRU gates r, z,
+// The tensor-core variant: bf16 with d and C multiples of 16.
+__host__ __device__ inline bool bwd_mma(int is_bf16, int d, int C) {
+  return is_bf16 && d % 16 == 0 && C % 16 == 0;
+}
+
+// Float32 words of one block's device-memory scratch: the GRU gates r, z,
 // n and the hidden n-gate preactivation (T, A, 4d), hs (T, A, d), scene
-// (T, A, C), social (T, A, d), the heads' cotangents (T, A, 4), scene
-// cotangents (R + 1, T, A, C); under social_freeze also the two
-// social-cotangent buckets (refine passes, re-score), (T, A, d) each. The
-// wrapper computes the same number (ops/ioc_bwd.py bwd_workspace_words).
+// (T, A, C), social (T, A, d) (kMma: both in bf16, in the first half of
+// their regions), the heads' cotangents (T, A, 4), scene cotangents
+// (R + 1, T, A, C); under social_freeze also the two social-cotangent
+// buckets (refine passes, re-score), (T, A, d) each.
 __host__ __device__ inline size_t bwd_ws_words(int A, int T, int d, int C,
                                                int R, int freeze) {
   return (size_t)T * A * (6 * d + C + 4) + (size_t)(R + 1) * T * A * C
          + (freeze ? (size_t)2 * T * A * d : 0);
+}
+
+// The operand log of the tensor-core variant: every reverse step's operand
+// tiles, rows padded to 16 agents, each row W bf16 [X (C + 2d + 16) | hr
+// (d) | R (4d)], a block's (R + 1) * T steps in (pass, step) order and the
+// blocks one after another, so that the weight-gradient product reads one
+// (rows, W) matrix.
+__host__ __device__ inline int log_width(int d, int C) {
+  return C + 7 * d + 16;
+}
+__host__ __device__ inline size_t log_rows(int A, int T, int R) {
+  return (size_t)(R + 1) * T * ((A + 15) / 16 * 16);
+}
+
+// Float32 words of the whole workspace of B * K blocks: their scratch, then
+// (tensor-core variant) their operand logs. The wrapper computes the same
+// number (ops/ioc_bwd.py bwd_workspace_words).
+__host__ __device__ inline size_t bwd_total_words(int B, int A, int K,
+                                                  int T, int d, int C, int R,
+                                                  int freeze, bool mma) {
+  return (size_t)B * K
+         * (bwd_ws_words(A, T, d, C, R, freeze)
+            + (mma ? log_rows(A, T, R) * log_width(d, C) / 2 : 0));
 }
 
 // Block-wide product with a per-output epilogue:
@@ -269,7 +334,7 @@ __device__ __forceinline__ void warp_mma(const __nv_bfloat16* A, int lda,
                                          int m0, const __nv_bfloat16* B,
                                          int ldb, BCol bcol, int ksteps,
                                          float (&acc)[2 * NT][4]) {
-  const int lane = threadIdx.x % 32;
+  const int lane = tid_here() % 32;
   const int r8 = lane % 8, hi = (lane / 8) % 2, top = lane / 16;
   for (int ks = 0; ks < ksteps; ++ks) {
     const int k0 = ks * 16;
@@ -297,7 +362,7 @@ __device__ __forceinline__ void warp_mma(const __nv_bfloat16* A, int lda,
 template <int NT, typename BCol, typename Epi>
 __device__ __forceinline__ void frag_epi(const float (&acc)[2 * NT][4],
                                          int m0, BCol bcol, Epi epi) {
-  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  const int lane = tid_here() % 32, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int j = 0; j < 2 * NT; ++j) {
     const int c = bcol(j / 2) + (j % 2) * 8 + tig * 2;
@@ -317,7 +382,7 @@ template <int NT, typename Col>
 __device__ __forceinline__ void frag_add_global(
     const float (&acc)[2 * NT][4], float* lo, float* hi, Col col,
     bool fresh = false) {
-  const int tig = threadIdx.x & 3;
+  const int tig = tid_here() & 3;
   float2 vl[2 * NT], vh[2 * NT];
 #pragma unroll
   for (int j = 0; j < 2 * NT; ++j) {
@@ -408,11 +473,7 @@ __device__ __forceinline__ void rows_in(int nrows, int ncols, Ld ld, St st) {
 // 16-byte accesses of the vector paths (mma variant: d and C are multiples
 // of 16, so every row of the workspace, of the inputs and of the operand
 // tiles starts on a 16-byte boundary). The workspace streams: written once
-// and read once, it should not push the weight-gradient partials out of L2.
-__device__ __forceinline__ void ld4_stream(const float* p, float (&f)[4]) {
-  const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
-  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
-}
+// and read once, it should not push the weights and cotangents out of L2.
 __device__ __forceinline__ void ld4(const float* p, float (&f)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
@@ -443,7 +504,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
 template <int MT, typename F>
 __device__ __forceinline__ void item_each(const float (&acc)[MT][4], int mt0,
                                           int mtiles, int c0, F f) {
-  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  const int lane = tid_here() % 32, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     if (mt0 + m < mtiles) {
@@ -465,7 +526,7 @@ __device__ __forceinline__ void item_add_global(const float (&acc)[MT][4],
                                                 int mt0, int mtiles, int c0,
                                                 RowPtr rowptr,
                                                 bool fresh = false) {
-  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  const int lane = tid_here() % 32, gid = lane >> 2, tig = lane & 3;
   float2* p[MT][2];
   float2 v[MT][2];
 #pragma unroll
@@ -507,7 +568,7 @@ __device__ __forceinline__ void block_mma_pre(const __nv_bfloat16* A,
                                               int ldwt, int ncols, Epi epi,
                                               int rot = 0) {
   constexpr int KC = 9;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = tid_here() / 32, lane = tid_here() % 32;
   const int gid = lane >> 2, tig = lane & 3;
   const int r8 = lane % 8, hi = (lane / 8) % 2, top = lane / 16;
   const int ctiles = ncols / 8, mgroups = (mtiles + MT - 1) / MT;
@@ -602,8 +663,8 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
     float* __restrict__ d_wh_p, float* __restrict__ d_bi_p,
     float* __restrict__ d_bh_p, float* __restrict__ d_hw_p,
     float* __restrict__ d_hb_p, float* __restrict__ d_ltau_p,
-    float* __restrict__ ws_g, int A, int K, int T, int d, int G, int C,
-    int R, float delta_scale) {
+    float* __restrict__ ws_g, __nv_bfloat16* __restrict__ log_g, int A,
+    int K, int T, int d, int G, int C, int R, float delta_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   using OT = std::conditional_t<kMma, __nv_bfloat16, float>;  // operand tiles
   const BwdLayout L(A, T, d, C, G, kMma);
@@ -638,7 +699,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
 
   float* ws = ws_g + (size_t)blk * bwd_ws_words(A, T, d, C, R, kFreeze);
   float* gate_ws = ws;                            // (T, A, 4d): r z n gh_n
-  float* hs_ws = gate_ws + (size_t)T * A * lg;    // (T, A, d)
+  float* hs_ws = gate_ws + (size_t)T * A * 4 * d; // (T, A, d)
   float* sc_ws = hs_ws + (size_t)T * A * d;       // (T, A, C)
   float* so_ws = sc_ws + (size_t)T * A * C;       // (T, A, d)
   float* dout_ws = so_ws + (size_t)T * A * d;     // (T, A, 4)
@@ -647,12 +708,16 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   float* bkr_ws = dsc_ws + (size_t)(R + 1) * T * A * C;  // (T, A, d)
   float* bkc_ws = bkr_ws + (size_t)T * A * d;            // (T, A, d)
 
-  // the block's weight-gradient partials: the input matrix's in device
-  // memory, the small ones in shared memory, the hidden matrix's too where
-  // it fits (mma); the shared ones are written out after the passes
-  float* dwi = d_wi_p + (size_t)blk * F * d3;
-  float* const dwh_g = d_wh_p + (size_t)blk * d * d3;
-  float* const dwh = kMma ? fp(L.dwh) : dwh_g;
+  // the block's weight-gradient partials: the small ones in shared memory,
+  // written out after the passes; without mma the input and hidden
+  // matrices' in device memory (with mma the block logs its operand tiles
+  // instead, from which ioc_bwd_wgrad_kernel forms those two after it)
+  float* const dwi = kMma ? nullptr : d_wi_p + (size_t)blk * F * d3;
+  float* const dwh = kMma ? nullptr : d_wh_p + (size_t)blk * d * d3;
+  // the log's columns [X | hr | R] and this block's first row
+  const int lxw = C + 2 * d + 16, lw = log_width(d, C);
+  __nv_bfloat16* const oplog =
+      kMma ? log_g + (size_t)blk * log_rows(A, T, R) * lw : nullptr;
   float* const dbi = fp(L.small);   // (3d)
   float* const dbh = dbi + d3;      // (3d)
   float* const dhw = dbh + d3;      // (d, 4)
@@ -660,29 +725,31 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   const CD* fm = fmap_g + (size_t)b * G * G * C;
 
   // ---- set-up: zero this block's accumulators, load masks and cotangents
-  for (int i = tid; i < F * d3; i += nth) dwi[i] = 0.f;
-  if constexpr (!kMma)
-    for (int i = tid; i < d * d3; i += nth) dwh[i] = 0.f;
-  for (int i = tid; i < 10 * d + 4; i += nth) dbi[i] = 0.f;
-  if constexpr (kFreeze)
-    for (int i = tid; i < 2 * T * A * d; i += nth) bkr_ws[i] = 0.f;
-  if constexpr (kMma) {  // the operand tiles' padding stays zero; d wh
-    uint32_t* z = reinterpret_cast<uint32_t*>(smem + L.X);
-    for (int i = tid; i < (int)((L.tiles_end - L.X) / 4); i += nth) z[i] = 0u;
+  if constexpr (!kMma) {
+    for (int i = tid_here(); i < F * d3; i += nth) dwi[i] = 0.f;
+    for (int i = tid_here(); i < d * d3; i += nth) dwh[i] = 0.f;
   }
-  for (int i = tid; i < T * A; i += nth) {
+  for (int i = tid_here(); i < 10 * d + 4; i += nth) dbi[i] = 0.f;
+  if constexpr (kFreeze)
+    for (int i = tid_here(); i < 2 * T * A * d; i += nth) bkr_ws[i] = 0.f;
+  if constexpr (kMma) {  // the operand tiles' padding stays zero
+    uint32_t* z = reinterpret_cast<uint32_t*>(smem + L.X);
+    for (int i = tid_here(); i < (int)((L.tiles_end - L.X) / 4); i += nth)
+      z[i] = 0u;
+  }
+  for (int i = tid_here(); i < T * A; i += nth) {
     const int t = i / A, a = i % A;
     const size_t o = (row(a) * T + t) * 2;
     gx[i] = g_ref[o];
     gy[i] = g_ref[o + 1];
     fmask[i] = fut_mask[((size_t)b * A + a) * T + t];
   }
-  for (int a = tid; a < A; a += nth) {
+  for (int a = tid_here(); a < A; a += nth) {
     live[a] = live_g[(size_t)b * A + a];
     gsc[a] = g_sc[row(a)];
   }
   __syncthreads();
-  for (int a = tid; a < A; a += nth) {
+  for (int a = tid_here(); a < A; a += nth) {
     float ok = 0.f;
     for (int j = 0; j < A; ++j)
       if (j != a && live[j] > 0.f) ok = 1.f;
@@ -700,9 +767,11 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   // sub the lane's place among the row's kRowLanes lanes.
   auto each_row = [&](auto f) {
     constexpr int per_warp = 32 / kRowLanes;
-    for (int a0 = warp * per_warp; a0 < A; a0 += nwarps * per_warp) {
-      const int a = a0 + lane / kRowLanes;
-      f(min(a, A - 1), a < A, lane % kRowLanes);
+    for (int a0 = (tid_here() / 32) * per_warp; a0 < A;
+         a0 += nwarps * per_warp) {
+      const int ln = tid_here() % 32;
+      const int a = a0 + ln / kRowLanes;
+      f(min(a, A - 1), a < A, ln % kRowLanes);
     }
   };
   // the social softmax of step t at the current positions into att (A, A);
@@ -749,7 +818,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   auto load_dec_msg = [&](int t) {
     if constexpr (kMma) {  // 8 bf16 per access, as they are
       const int d8 = d / 8;
-      for (int it = tid; it < 2 * A * d8; it += nth) {
+      for (int it = tid_here(); it < 2 * A * d8; it += nth) {
         const bool is_msg = it >= A * d8;
         const int i2 = is_msg ? it - A * d8 : it;
         const int a = i2 / d8, j = (i2 % d8) * 8;
@@ -773,24 +842,46 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
     }
   };
   // a (T, A, n) float32 workspace block of step t into X's columns at off,
-  // rounded values that the operand tile holds exactly
+  // rounded values that the operand tile holds exactly (without mma)
   auto ws_to_x = [&](const float* src, int n, int t, int off) {
-    if constexpr (kMma) {
-      const int n4 = n / 4;
-      for (int it = tid; it < A * n4; it += nth) {
-        const int a = it / n4, j = (it % n4) * 4;
-        float v[4];
-        ld4_stream(src + ((size_t)t * A + a) * n + j, v);
-        st4_bf16(X + a * lx + off + j, v);
-      }
-    } else {
-      rows_in<4>(
-          A, n,
-          [&](int a, int j) {
-            return __ldcs(src + ((size_t)t * A + a) * n + j);
-          },
-          [&](int a, int j, float v) { X[a * lx + off + j] = from_f<OT>(v); });
+    rows_in<4>(
+        A, n,
+        [&](int a, int j) {
+          return __ldcs(src + ((size_t)t * A + a) * n + j);
+        },
+        [&](int a, int j, float v) { X[a * lx + off + j] = from_f<OT>(v); });
+  };
+  // kMma: the scene and social blocks are kept in the workspace in bf16,
+  // the values the operand tile holds, so that they are copied into X as
+  // they are. The operands a step reads from device memory are asked for
+  // by cp.async a phase or more ahead of it, into the shared memory they
+  // are read from (nothing else there reads that memory meanwhile), and
+  // waited for where the step needs them: a step's device-memory round
+  // trips leave its chain of barriers.
+  __nv_bfloat16* const sc_b = reinterpret_cast<__nv_bfloat16*>(sc_ws);
+  __nv_bfloat16* const so_b = reinterpret_cast<__nv_bfloat16*>(so_ws);
+  // A rows of n 16-byte pieces, agent a's from src + a * sstride to dst +
+  // a * dstride (bytes)
+  auto async_rows = [&](void* dst, int dstride, const void* src,
+                        size_t sstride, int n) {
+    for (int it = tid_here(); it < A * n; it += nth) {
+      const int a = it / n, j = (it - a * n) * 16;
+      cp_async16(static_cast<char*>(dst) + a * dstride + j,
+                 static_cast<const char*>(src) + a * sstride + j);
     }
+  };
+  // step t's dec_h (into X) or messages (into msg): agent a's row (b, a,
+  // k, t) lies K * T * d elements after agent a - 1's
+  auto async_dec_msg = [&](int t, bool is_msg) {
+    const size_t o = (row(0) * T + t) * d, stride = (size_t)K * T * d * 2;
+    if (is_msg)
+      async_rows(msg, lm * 2, msg_g + o, stride, d / 8);
+    else
+      async_rows(X + rd_off, lx * 2, dec_h + o, stride, d / 8);
+  };
+  // a (T, A, n) bf16 workspace block of step t into X's columns at off
+  auto async_block = [&](const __nv_bfloat16* src, int n, int t, int off) {
+    async_rows(X + off, lx * 2, src + (size_t)t * A * n, n * 2, n / 8);
   };
   // the rounded GRU state of the forward sweep
   auto h_rounded = [&](const float* h, int a, int j) {
@@ -808,7 +899,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   // the social pool soc = att msg of the attention in att, per output
   auto pool = [&](auto epi) {
     if constexpr (kMma) {
-      for (int item = warp; item < mtiles * n16; item += nwarps) {
+      for (int item = tid_here() / 32; item < mtiles * n16; item += nwarps) {
         const int m0 = (item / n16) * 16, n0 = (item % n16) * 16;
         auto col = [=](int) { return n0; };
         float acc[2][4] = {};
@@ -829,7 +920,8 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   auto pool_adjoint = [&](int t, const OT* ds, bool to_msg, bool fresh) {
     if constexpr (kMma) {
       const int n_msg = to_msg ? mtiles * n16 : 0;
-      for (int item = warp; item < n_msg + mtiles * mtiles; item += nwarps) {
+      for (int item = tid_here() / 32; item < n_msg + mtiles * mtiles;
+           item += nwarps) {
         float acc[2][4] = {};
         if (item < n_msg) {   // d msg (j, c) += sum_a att[a][j] ds[a][c]
           const int m0 = (item / n16) * 16, n0 = (item % n16) * 16;
@@ -928,7 +1020,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   if constexpr (kFreeze) {
     // the frozen social block: pooled once at the initial positions, read
     // by every pass's forward and reverse sweeps
-    for (int i = tid; i < T * A; i += nth) {
+    for (int i = tid_here(); i < T * A; i += nth) {
       const int t = i / A, a = i % A;
       const size_t o = (row(a) * T + t) * 2;
       xs[i] = traj[o];
@@ -940,7 +1032,10 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       attend(t);
       __syncthreads();
       pool([&](int a, int c, float acc) {
-        __stcs(so_ws + ((size_t)t * A + a) * d + c, rnd<CD>(acc));
+        if constexpr (kMma)
+          so_b[((size_t)t * A + a) * d + c] = __float2bfloat16(acc);
+        else
+          __stcs(so_ws + ((size_t)t * A + a) * d + c, rnd<CD>(acc));
       });
       __syncthreads();
     }
@@ -949,7 +1044,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   for (int p = R; p >= 0; --p) {
     const bool score_pass = p == R;
     const float* lev = p == 0 ? traj : iters + (size_t)(p - 1) * plane;
-    for (int i = tid; i < T * A; i += nth) {
+    for (int i = tid_here(); i < T * A; i += nth) {
       const int t = i / A, a = i % A;
       const size_t o = (row(a) * T + t) * 2;
       xs[i] = lev[o];
@@ -960,23 +1055,34 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         gy[i] += git[o + 1];
       }
     }
-    for (int i = tid; i < A * d; i += nth) {
+    for (int i = tid_here(); i < A * d; i += nth) {
       hc[i] = 0.f;
       if constexpr (kMma) hr[(i / d) * lm + i % d] = __float2bfloat16(0.f);
     }
+    // kMma: step t's dec_h, and its messages or (social_freeze) its frozen
+    // social block, asked for once step t - 1's input gates have read X
+    auto prefetch_fwd = [&](int t) {
+      async_dec_msg(t, false);
+      if constexpr (kFreeze)
+        async_block(so_b, d, t, ro_off);
+      else
+        async_dec_msg(t, true);
+      cp_async_commit();
+    };
+    if constexpr (kMma) prefetch_fwd(0);
     __syncthreads();
 
     // ---------------- forward sweep: recompute and seed ------------------
     for (int t = 0; t < T; ++t) {
       const float* px = xs + t * A;
       const float* py = ys + t * A;
-      load_dec_msg(t);
+      if constexpr (!kMma) load_dec_msg(t);
       if constexpr (kMma) {
         // 8 channels of an agent's scene block per thread: the four corner
         // pieces asked for together, the channel's four multiply-adds in
         // corner order
         const int c8 = C / 8;
-        for (int it = tid; it < A * c8; it += nth) {
+        for (int it = tid_here(); it < A * c8; it += nth) {
           const int a = it / c8, c0 = (it % c8) * 8;
           const Corners q = corners(px[a], py[a], G);
           uint4 f[4];
@@ -996,20 +1102,13 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
             }
           }
           uint32_t o[4];
-          float r[8];
 #pragma unroll
-          for (int h = 0; h < 4; ++h) {
+          for (int h = 0; h < 4; ++h)
             o[h] = pack_bf16(make_float2(acc[2 * h], acc[2 * h + 1]));
-            const float2 v = unpack_bf16(o[h]);
-            r[2 * h] = v.x, r[2 * h + 1] = v.y;
-          }
-          *reinterpret_cast<uint4*>(X + a * lx + rs_off + c0) =
-              make_uint4(o[0], o[1], o[2], o[3]);
-          float* dst = sc_ws + ((size_t)t * A + a) * C + c0;
-          __stcs(reinterpret_cast<float4*>(dst),
-                 make_float4(r[0], r[1], r[2], r[3]));
-          __stcs(reinterpret_cast<float4*>(dst + 4),
-                 make_float4(r[4], r[5], r[6], r[7]));
+          const uint4 v = make_uint4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<uint4*>(X + a * lx + rs_off + c0) = v;
+          __stcs(reinterpret_cast<uint4*>(sc_b + ((size_t)t * A + a) * C
+                                          + c0), v);
         }
       } else {
         rows_in<4>(
@@ -1030,17 +1129,22 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
               __stcs(sc_ws + ((size_t)t * A + a) * C + c, v);
             });
       }
-      if constexpr (kFreeze)
-        ws_to_x(so_ws, d, t, ro_off);
-      else
+      if constexpr (kFreeze) {
+        if constexpr (!kMma) ws_to_x(so_ws, d, t, ro_off);
+      } else {
         attend(t);
+      }
+      if constexpr (kMma) cp_async_wait<0>();  // prefetch_fwd(t)
       __syncthreads();
       // social pool soc = att msg; hidden gates h W_h, staged in G as
       // [r | z | . | n]
       if constexpr (!kFreeze)
         pool([&](int a, int c, float acc) {
           X[a * lx + ro_off + c] = from_f<OT>(rnd<CD>(acc));
-          __stcs(so_ws + ((size_t)t * A + a) * d + c, rnd<CD>(acc));
+          if constexpr (kMma)
+            so_b[((size_t)t * A + a) * d + c] = __float2bfloat16(acc);
+          else
+            __stcs(so_ws + ((size_t)t * A + a) * d + c, rnd<CD>(acc));
         });
       auto stage_gh = [&](int a, int g, float acc) {
         if (a < A) Gc[a * lg + (g < 2 * d ? g : g + d)] = acc;
@@ -1055,7 +1159,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         }
       };
       if constexpr (kMma) {
-        block_mma_pre<1>(hr, lm, mtiles, d, same_k, whT, d, d3,
+        block_mma_pre<2>(hr, lm, mtiles, d, same_k, whT, d, d3,
                          [&](int mt0, int c0, const auto& acc) {
                            item_each(acc, mt0, mtiles, c0, stage_gh);
                          });
@@ -1078,10 +1182,12 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
             w_in(wi + (size_t)2 * d3, d3, 0), stage_gi);
       }
       __syncthreads();
+      if constexpr (kMma)
+        if (t + 1 < T) prefetch_fwd(t + 1);
       // the GRU step
       if constexpr (kMma) {  // four channels of an agent per thread
         const int d4 = d / 4;
-        for (int it = tid; it < A * d4; it += nth) {
+        for (int it = tid_here(); it < A * d4; it += nth) {
           const int a = it / d4, c = (it % d4) * 4, i = a * d + c;
           const float vx = t > 0 ? px[a] - xs[(t - 1) * A + a] : 0.f;
           const float vy = t > 0 ? py[a] - ys[(t - 1) * A + a] : 0.f;
@@ -1116,12 +1222,12 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           st4(hn + i, hv);
           st4_bf16(hr + a * lm + c, hv);
           st4_stream(hs_ws + (size_t)t * A * d + i, hv);
-          float* gw = gate_ws + ((size_t)t * A + a) * lg + c;
+          float* gw = gate_ws + ((size_t)t * A + a) * 4 * d + c;
 #pragma unroll
           for (int q = 0; q < 4; ++q) st4_stream(gw + q * d, gate[q]);
         }
       } else {
-        for (int a = warp; a < A; a += nwarps)
+        for (int a = tid_here() / 32; a < A; a += nwarps)
         for (int c = lane; c < d; c += 32) {
           const int i = a * d + c;
           const float vx = t > 0 ? px[a] - xs[(t - 1) * A + a] : 0.f;
@@ -1140,7 +1246,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           const float hnew = (1.f - z) * n + z * hc[i];
           hn[i] = hnew;
           __stcs(hs_ws + (size_t)t * A * d + i, hnew);
-          float* gw = gate_ws + ((size_t)t * A + a) * lg + c;
+          float* gw = gate_ws + ((size_t)t * A + a) * 4 * d + c;
           __stcs(gw, r);
           __stcs(gw + d, z);
           __stcs(gw + 2 * d, n);
@@ -1155,7 +1261,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       }
       // heads [psi | gate | dx | dy] and their cotangents: one thread per
       // (agent, head), the four of an agent neighbours in a warp
-      for (int i0 = warp * 32; i0 < A * 4; i0 += nth) {
+      for (int i0 = (tid_here() / 32) * 32; i0 < A * 4; i0 += nth) {
         const int i = i0 + lane;
         const bool ok = i < A * 4;
         const int a = ok ? i / 4 : 0, q = i % 4;
@@ -1189,7 +1295,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       __syncthreads();
       // the heads' weight gradients; the next barrier is the next step's
       // first (nothing before it writes what these sums read)
-      for (int e = tid; e < d * 4 + 4; e += nth) {
+      for (int e = tid_here(); e < d * 4 + 4; e += nth) {
         if (e < d * 4) {
           const int j = e / 4, q = e % 4;
           float s = 0.f;
@@ -1207,7 +1313,27 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
     __syncthreads();
 
     // ---------------- reverse sweep --------------------------------------
-    for (int i = tid; i < A * d; i += nth) dhc[i] = 0.f;
+    // kMma: step t's operands, asked for once step t + 1 no longer reads
+    // where they go (after its products, and its pooling adjoint, which
+    // reads the messages): dec_h and the scene and social blocks into X,
+    // the messages, the saved gates into G (whose rows the adjoint then
+    // overwrites in place), the heads' cotangents into dout, the previous
+    // GRU state into hp
+    auto prefetch_rev = [&](int t) {
+      async_dec_msg(t, false);
+      if constexpr (!kFreeze) async_dec_msg(t, true);
+      async_block(sc_b, C, t, rs_off);
+      async_block(so_b, d, t, ro_off);
+      async_rows(Gc, lg * 4, gate_ws + (size_t)t * A * 4 * d, 16 * d, d);
+      async_rows(dout, 16, dout_ws + (size_t)t * A * 4, 16, 1);
+      if (t > 0)
+        async_rows(hp, d * 4, hs_ws + (size_t)(t - 1) * A * d, d * 4, d / 4);
+      else
+        for (int i = tid_here(); i < A * d; i += nth) hp[i] = 0.f;
+      cp_async_commit();
+    };
+    for (int i = tid_here(); i < A * d; i += nth) dhc[i] = 0.f;
+    if constexpr (kMma) prefetch_rev(T - 1);
     __syncthreads();
     for (int t = T - 1; t >= 0; --t) {
       const float* px = xs + t * A;
@@ -1215,7 +1341,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       // GRU adjoint of step t, from the gates the forward sweep saved:
       // G <- [drp | dzp | dnp | dnp * r], R its rounded copy
       auto vel_to_x = [&]() {
-        for (int a = tid; a < A; a += nth) {
+        for (int a = tid_here(); a < A; a += nth) {
           X[a * lx + rv_off] =
               from_f<OT>(rnd<CD>(t > 0 ? px[a] - xs[(t - 1) * A + a] : 0.f));
           X[a * lx + rv_off + 1] =
@@ -1223,22 +1349,15 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         }
       };
       if constexpr (kMma) {
-        // One barrier interval, four channels of an agent per thread and 16
-        // bytes per access.
+        // The step's operands arrive by prefetch_rev; four channels of an
+        // agent per thread, 16 bytes per access.
         const int d4 = d / 4;
         auto ask = [&](int it, float (&v)[6][4]) {
           const int a = it / d4, c = (it % d4) * 4;
-          const size_t ta = (size_t)t * A + a;
-          const float* gw = gate_ws + ta * lg + c;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) ld4_stream(gw + q * d, v[q]);
-          ld4_stream(dout_ws + ta * 4, v[4]);
-          if (t > 0) {
-            ld4_stream(hs_ws + (ta - A) * d + c, v[5]);
-          } else {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) v[5][u] = 0.f;
-          }
+          for (int q = 0; q < 4; ++q) ld4(Gc + a * lg + q * d + c, v[q]);
+          ld4(dout + a * 4, v[4]);
+          ld4(hp + a * d + c, v[5]);
         };
         auto adjoint = [&](int it, const float (&v)[6][4]) {
           const int a = it / d4, c = (it % d4) * 4, i = a * d + c;
@@ -1270,12 +1389,11 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           st4(dhc + i, dh);
           st4_bf16(hr + a * lm + c, v[5]);
         };
-        load_dec_msg(t);
-        ws_to_x(so_ws, d, t, ro_off);
-        ws_to_x(sc_ws, C, t, rs_off);
         vel_to_x();
         if constexpr (!kFreeze) attend(t);
-        for (int it = tid; it < A * d4; it += nth) {
+        cp_async_wait<0>();  // prefetch_rev(t)
+        __syncthreads();
+        for (int it = tid_here(); it < A * d4; it += nth) {
           float sv[6][4];
           ask(it, sv);
           adjoint(it, sv);
@@ -1299,7 +1417,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         if constexpr (!kFreeze) attend(t);
         __syncthreads();
         rows_in<2>(A, d, [&](int a, int c) {
-          const float* gw = gate_ws + ((size_t)t * A + a) * lg + c;
+          const float* gw = gate_ws + ((size_t)t * A + a) * 4 * d + c;
           const float* dq = dout_ws + ((size_t)t * A + a) * 4;
           return Saved{__ldcs(gw), __ldcs(gw + d), __ldcs(gw + 2 * d),
                        __ldcs(gw + 3 * d),
@@ -1340,7 +1458,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       auto block_ct = [&](int a, int n, float acc) {
             if (a >= A) return;
             if (n < C) {
-              dsc[a * C + n] = acc;
+              dsc[a * (kMma ? C + 4 : C) + n] = acc;
               __stcs(dsc_ws + ((size_t)p * T + t) * A * C + a * C + n, acc);
             } else if (n < C + d) {
               if constexpr (kFreeze)  // the deferred adjoint's bucket
@@ -1358,7 +1476,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           item_each(acc, mt0, mtiles, c0, add_dh);
         };
         // R's columns [drp | dzp | dnp * r] against wh's [r | z | n]
-        block_mma_pre<1>(Rc, lr, mtiles, d3, rh_col, wh, d3, d, add_dh_item);
+        block_mma_pre<2>(Rc, lr, mtiles, d3, rh_col, wh, d3, d, add_dh_item);
         // an item's 8 columns lie in one block (C and d are multiples of
         // 16): what is added to device memory goes as one batch
         block_mma_pre<2>(
@@ -1401,39 +1519,26 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           veld[2 * a + 1] = sy;
         }
       });
-      // weight gradients: each element's sum over this step's agents, formed
-      // on its own and then added to its partial
       if constexpr (kMma) {
-        // d Wi = X^T R and d Wh = hp^T [drp | dzp | dnp * r]: a warp's item
-        // is 16 rows by 48 columns (three 16-column tiles of R). The items
-        // go to the warps from the last one down: the first warps have the
-        // most items of the products above.
-        const int xt = (F - 2) / 16 + 1, gt = d3 / 48;
-        for (int item = nwarps - 1 - warp; item < (xt + n16) * gt;
-             item += nwarps) {
-          const int mt = item / gt, g0 = (item % gt) * 48;
-          const bool is_wi = mt < xt;
-          const int m0 = (is_wi ? mt : mt - xt) * 16;
-          const __nv_bfloat16* lhs = is_wi ? X : hr;
-          float acc[6][4] = {};
-          warp_mma<3, true, true>(
-              lhs, is_wi ? lx : lm, m0, Rc, lr,
-              [=](int j) {
-                const int g = g0 + 16 * j;
-                return is_wi ? g : rh_col(g);
-              },
-              mtiles, acc);
-          // X's column -> wi's row: [scene | social | dec] follow vel
-          auto out_row = [&](int f) -> float* {
-            if (!is_wi) return dwh + (size_t)f * d3;
-            if (f < F - 2) return dwi + (size_t)(f + 2) * d3;
-            return f < F ? dwi + (size_t)(f - (F - 2)) * d3 : nullptr;
-          };
-          const int f0 = m0 + (lane >> 2);
-          frag_add_global<3>(acc, out_row(f0), out_row(f0 + 8),
-                             [=](int j) { return g0 + 16 * j; });
+        // the step's operand tiles to the log, 16 bytes a piece: the weight
+        // gradients d Wi = X^T R and d Wh = hr^T [drp | dzp | dnp * r] are
+        // formed after this kernel, over every block's logged rows at once
+        // (ioc_bwd_wgrad_kernel); the log is never read back here
+        __nv_bfloat16* const dst =
+            oplog + ((size_t)p * T + t) * L.rows * lw;
+        const int per = lw / 8;
+        for (int it = tid_here(); it < L.rows * per; it += nth) {
+          const int a = it / per, j = (it % per) * 8;
+          const __nv_bfloat16* src =
+              j < lxw       ? X + a * lx + j
+              : j < lxw + d ? hr + a * lm + j - lxw
+                            : Rc + a * lr + j - lxw - d;
+          __stcs(reinterpret_cast<uint4*>(dst + (size_t)a * lw + j),
+                 *reinterpret_cast<const uint4*>(src));
         }
       } else {
+        // weight gradients: each element's sum over this step's agents,
+        // formed on its own and then added to its partial
         tile_mm<4, 4>(
             F, d3, A, [&](int f, int a) { return X[a * lx + f]; },
             [&](int a, int g) { return Rc[a * lr + g]; },
@@ -1443,7 +1548,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
             [&](int a, int g) { return Rc[a * lr + rh_col(g)]; },
             [&](int j, int g, float acc) { dwh[(size_t)j * d3 + g] += acc; });
       }
-      for (int g = tid; g < 2 * d3; g += nth) {
+      for (int g = tid_here(); g < 2 * d3; g += nth) {
         const bool is_bi = g < d3;
         const int gg = is_bi ? g : g - d3;
         const int col = is_bi || gg < 2 * d ? gg : gg + d;
@@ -1459,6 +1564,11 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
         // the social pooling adjoint: d msg, then d att, then d logits
         pool_adjoint(t, dsoc, true, score_pass);
         __syncthreads();
+      }
+      // X, G, dout, hp and msg are read: the next step's operands go there
+      if constexpr (kMma)
+        if (t > 0) prefetch_rev(t - 1);
+      if constexpr (!kFreeze) {
         softmax_adjoint(px, py);
         __syncthreads();
         add_ltau();
@@ -1475,7 +1585,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
             float f[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) f[e] = to_f(fm[q.n[e] * C + c]);
-            const float g = rnd<CD>(dsc[a * C + c]);
+            const float g = rnd<CD>(dsc[a * (kMma ? C + 4 : C) + c]);
 #pragma unroll
             for (int e = 0; e < 4; ++e) dhot[e] = fmaf(g, f[e], dhot[e]);
           }
@@ -1528,7 +1638,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       const float* py = ys + t * A;
       load_dec_msg(t);
       attend(t);
-      for (int i = tid; i < A * d; i += nth) {
+      for (int i = tid_here(); i < A * d; i += nth) {
         const float r = bkr_ws[(size_t)t * A * d + i];
         const int o = (i / d) * lm + i % d;
         s_all[o] = from_f<OT>(rnd<CD>(r + bkc_ws[(size_t)t * A * d + i]));
@@ -1559,22 +1669,20 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   }
 
   // ---- outputs: position cotangents, d soc_logtau --------------------------
-  for (int i = tid; i < T * A; i += nth) {
+  for (int i = tid_here(); i < T * A; i += nth) {
     const int t = i / A, a = i % A;
     const size_t o = (row(a) * T + t) * 2;
     d_traj[o] = gx[i];
     d_traj[o + 1] = gy[i];
   }
   if (tid == 0) d_ltau_p[blk] = ltau_acc;
-  for (int i = tid; i < d3; i += nth) {
+  for (int i = tid_here(); i < d3; i += nth) {
     d_bi_p[(size_t)blk * d3 + i] = dbi[i];
     d_bh_p[(size_t)blk * d3 + i] = dbh[i];
   }
-  for (int i = tid; i < d * 4 + 4; i += nth)
+  for (int i = tid_here(); i < d * 4 + 4; i += nth)
     (i < d * 4 ? d_hw_p + (size_t)blk * d * 4 + i
                : d_hb_p + (size_t)blk * 4 + i - d * 4)[0] = dhw[i];
-  if constexpr (kMma)
-    for (int i = tid; i < d * d3; i += nth) dwh_g[i] = dwh[i];
   __syncthreads();
 
   // ---- the feature-map gradient, gathered into shared memory ---------------
@@ -1600,7 +1708,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
   int* sn = reinterpret_cast<int*>(sw + (size_t)chunk * 4);
   unsigned short* lists =                         // (bands, chunk)
       reinterpret_cast<unsigned short*>(sn + (size_t)chunk * 4);
-  for (int i = tid; i < G * G * C; i += nth) acc[i] = 0.f;
+  for (int i = tid_here(); i < G * G * C; i += nth) acc[i] = 0.f;
   const int entries = (R + 1) * T * A;
   for (int i0 = 0; i0 < entries; i0 += chunk) {
     const int ne = min(chunk, entries - i0);
@@ -1629,7 +1737,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
           },
           [&](int j, float v) { sv[j] = rnd<CD>(v); });
     }
-    for (int e = tid; e < ne; e += nth) {
+    for (int e = tid_here(); e < ne; e += nth) {
       const int i = i0 + e;
       const int p = R - i / (T * A), t = T - 1 - (i / A) % T, a = i % A;
       const float* lev = p == 0 ? traj : iters + (size_t)(p - 1) * plane;
@@ -1642,7 +1750,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       }
     }
     __syncthreads();
-    for (int band = warp; band < bands; band += nwarps) {
+    for (int band = tid_here() / 32; band < bands; band += nwarps) {
       unsigned short* list = lists + (size_t)band * chunk;
       int n = 0;
       for (int e0 = 0; e0 < ne; e0 += 32) {
@@ -1660,7 +1768,7 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
       if (lane == 0) cnt[band] = n;
     }
     __syncthreads();
-    for (int item = tid; item < C * bands; item += nth) {
+    for (int item = tid_here(); item < C * bands; item += nth) {
       const int c = item % C, band = item / C;
       const unsigned short* list = lists + (size_t)band * chunk;
       const int n = cnt[band];
@@ -1680,7 +1788,185 @@ __global__ void __launch_bounds__(kBwdThreads) ioc_refine_bwd_kernel(
     __syncthreads();
   }
   float* dfm = d_fmap_p + (size_t)blk * G * G * C;
-  for (int i = tid; i < G * G * C; i += nth) dfm[i] = acc[i];
+  for (int i = tid_here(); i < G * G * C; i += nth) dfm[i] = acc[i];
+}
+
+// ---- the weight gradients of the input and hidden matrices (kMma) ----------
+// d Wi = sum X^T R[:, :3d] and d Wh = sum hr^T R[:, [r | z | n * r]] over
+// every row of the operand log (log_width, log_rows): one long product whose
+// depth is the log's rows. Its floor is bytes (the log is read once: 72
+// operations a byte at the flagship, where the card's balance is ~295), so
+// the kernel is built to stream: a persistent grid of kWgCtas blocks, each
+// owning a fixed contiguous slice of the rows, a ring of kWgStages row
+// chunks that cp.async keeps in flight, and the products on the tensor
+// cores (ldmatrix.trans + mma.sync, float32 accumulation) from the chunk
+// that has arrived. A warp owns an item of 3 x 3 output tiles of 16 x 16 for
+// the whole slice, in registers; the items of X's columns and of hr's are
+// apart, since they pair with different columns of R. Where there are more
+// items than warps, gridDim.y rounds of blocks stream the same slice for the
+// rest. Each block writes its slice's partial of both matrices, in wi's and
+// wh's row order; the wrapper sums the partials in a fixed order:
+// deterministic, with no atomics.
+constexpr int kWgThreads = 384;
+constexpr int kWgStages = 4;
+constexpr int kWgCtas = 132;  // H100 SXM's SMs: one block each
+
+struct WgShape {
+  int W, ld, ch, xt, ht, nt, xg, ng, items, rounds;
+  __host__ __device__ WgShape(int d, int C) {
+    W = log_width(d, C);
+    ld = mma_stride(W);  // ldmatrix reads 8 rows without bank conflicts
+    ch = 64;             // rows a chunk, fewer where the ring would not fit
+    while (ch > 16 && (size_t)kWgStages * ch * ld * 2 > kMaxSmem) ch /= 2;
+    xt = (C + 2 * d + 16) / 16;  // 16-row output tiles of X's columns
+    ht = d / 16;                 // of hr's
+    nt = 3 * d / 16;             // 16-column output tiles
+    xg = (xt + 2) / 3;
+    ng = (nt + 2) / 3;
+    items = (xg + (ht + 2) / 3) * ng;
+    rounds = (items + kWgThreads / 32 - 1) / (kWgThreads / 32);
+  }
+  size_t smem() const { return (size_t)kWgStages * ch * ld * 2; }
+};
+
+// blocks of the grid's x dimension: kWgCtas, or one per chunk where fewer
+__host__ __device__ inline int wg_ctas(long long nrows, int ch) {
+  const long long chunks = (nrows + ch - 1) / ch;
+  return (int)(chunks < kWgCtas ? chunks : kWgCtas);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) ioc_bwd_wgrad_kernel(
+    const __nv_bfloat16* __restrict__ oplog, long long nrows, int d, int C,
+    float* __restrict__ d_wi_p, float* __restrict__ d_wh_p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  const WgShape S(d, C);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r8 = lane % 8, hi = (lane / 8) % 2, top = lane / 16;
+  const int d3 = 3 * d, F = 2 + C + 2 * d, lxw = C + 2 * d + 16;
+  // this block's slice of chunks
+  const long long chunks = (nrows + S.ch - 1) / S.ch;
+  const long long c0 = chunks * blockIdx.x / gridDim.x;
+  const long long c1 = chunks * (blockIdx.x + 1) / gridDim.x;
+  // this warp's item: up to 3 x 3 tiles, rows of X's or of hr's columns
+  const int item = blockIdx.y * (kWgThreads / 32) + warp;
+  const bool has = item < S.items;
+  const int mg = has ? item / S.ng : 0, ngi = has ? item % S.ng : 0;
+  const bool is_wi = mg < S.xg;
+  const int mt0 = (is_wi ? mg : mg - S.xg) * 3;
+  const int mtn = min(3, (is_wi ? S.xt : S.ht) - mt0);
+  const int nt0 = ngi * 3, ntn = min(3, S.nt - nt0);
+  int acol[3], bcol[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+    acol[m] = (is_wi ? 0 : lxw) + 16 * (mt0 + min(m, mtn - 1));
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    const int g = 16 * (nt0 + min(n, ntn - 1));
+    bcol[n] = lxw + d + (is_wi || g < 2 * d ? g : g + d);
+  }
+  float acc[3][6][4];
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+
+  const int per = S.W / 8;  // 16-byte pieces a row
+  auto load = [&](long long c, int stage) {
+    const long long r0 = c * S.ch;
+    const int n = (int)min((long long)S.ch, nrows - r0);
+    __nv_bfloat16* dst = ring + (size_t)stage * S.ch * S.ld;
+    const __nv_bfloat16* src = oplog + (size_t)r0 * S.W;
+    for (int i = threadIdx.x; i < n * per; i += kWgThreads) {
+      const int r = i / per, j = (i % per) * 8;
+      cp_async16(dst + r * S.ld + j, src + (size_t)r * S.W + j);
+    }
+  };
+  for (int s_ = 0; s_ < kWgStages - 1; ++s_) {
+    if (c0 + s_ < c1) load(c0 + s_, s_);
+    cp_async_commit();
+  }
+  for (long long c = c0; c < c1; ++c) {
+    cp_async_wait<kWgStages - 2>();  // chunk c has arrived
+    __syncthreads();                 // and chunk c - 1 is read by all warps
+    const long long next = c + kWgStages - 1;
+    if (next < c1) load(next, (int)((next - c0) % kWgStages));
+    cp_async_commit();
+    if (!has) continue;
+    const __nv_bfloat16* tile =
+        ring + (size_t)((c - c0) % kWgStages) * S.ch * S.ld;
+    const int ksteps = (int)min((long long)S.ch, nrows - c * S.ch) / 16;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const __nv_bfloat16* t = tile + (size_t)ks * 16 * S.ld;
+      uint32_t a[3][4], b[3][4];
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        if (m < mtn) ldsm_x4_t(a[m], t + (r8 + top * 8) * S.ld + acol[m]
+                                         + hi * 8);
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+        if (n < ntn) ldsm_x4_t(b[n], t + (r8 + hi * 8) * S.ld + bcol[n]
+                                         + top * 8);
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+          if (m < mtn && n < ntn) {
+            mma_bf16(acc[m][2 * n], a[m][0], a[m][1], a[m][2], a[m][3],
+                     b[n][0], b[n][1]);
+            mma_bf16(acc[m][2 * n + 1], a[m][0], a[m][1], a[m][2], a[m][3],
+                     b[n][2], b[n][3]);
+          }
+    }
+  }
+  cp_async_wait<0>();
+  if (!has) return;
+  // the slice's partial: X's column f is wi's row f + 2 ([scene | social |
+  // dec] follow vel), its columns F - 2 and F - 1 wi's rows 0 and 1 (vel),
+  // its padding columns nothing; hr's column j is wh's row j
+  float* const wi = d_wi_p + (size_t)blockIdx.x * F * d3;
+  float* const wh = d_wh_p + (size_t)blockIdx.x * d * d3;
+  auto out_row = [&](int f) -> float* {
+    if (!is_wi) return wh + (size_t)f * d3;
+    if (f < F - 2) return wi + (size_t)(f + 2) * d3;
+    return f < F ? wi + (size_t)(f - (F - 2)) * d3 : nullptr;
+  };
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    if (m >= mtn) continue;
+    const int f = 16 * (mt0 + m) + gid;
+    float* const lo = out_row(f);
+    float* const hi8 = out_row(f + 8);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (j / 2 >= ntn) continue;
+      const int col = 16 * (nt0 + j / 2) + (j % 2) * 8 + tig * 2;
+      if (lo)
+        *reinterpret_cast<float2*>(lo + col) =
+            make_float2(acc[m][j][0], acc[m][j][1]);
+      if (hi8)
+        *reinterpret_cast<float2*>(hi8 + col) =
+            make_float2(acc[m][j][2], acc[m][j][3]);
+    }
+  }
+}
+
+// The product kernel over n rows of the log, after the backward kernel on
+// the same stream: per-slice partials into wi_p (wg_ctas, F, 3d) and wh_p
+// (wg_ctas, d, 3d).
+int launch_wgrad(const __nv_bfloat16* oplog, long long nrows, int d, int C,
+                 float* wi_p, float* wh_p, cudaStream_t stream) {
+  const WgShape S(d, C);
+  if (S.smem() > kMaxSmem) return cudaErrorInvalidValue;
+  cudaFuncSetAttribute(ioc_bwd_wgrad_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)S.smem());
+  ioc_bwd_wgrad_kernel<<<dim3(wg_ctas(nrows, S.ch), S.rounds), kWgThreads,
+                         S.smem(), stream>>>(oplog, nrows, d, C, wi_p, wh_p);
+  return (int)cudaGetLastError();
 }
 
 template <typename CD, bool kMma, bool kFreeze>
@@ -1700,26 +1986,50 @@ int launch_bwd(const void* const* in, void* const* out, void* ws, int B,
   using F = const float*;
   using Cp = const CD*;
   float* const* o = reinterpret_cast<float* const*>(out);
+  // the blocks' scratch, then (kMma) their operand logs
+  float* const scratch = static_cast<float*>(ws);
+  __nv_bfloat16* const oplog =
+      kMma ? reinterpret_cast<__nv_bfloat16*>(
+                 scratch + (size_t)B * K * bwd_ws_words(A, T, d, C, R,
+                                                        kFreeze))
+           : nullptr;
   ioc_refine_bwd_kernel<CD, kMma, kFreeze>
       <<<B * K, kBwdThreads, bytes, stream>>>(
       F(in[0]), F(in[1]), Cp(in[2]), Cp(in[3]), Cp(in[4]), F(in[5]),
       F(in[6]), Cp(in[7]), Cp(in[8]), Cp(in[9]), Cp(in[10]), Cp(in[11]),
       F(in[12]), F(in[13]), F(in[14]), F(in[15]), F(in[16]), F(in[17]),
       F(in[18]), F(in[19]), F(in[20]), o[0], o[1], o[2], o[3], o[4], o[5],
-      o[6], o[7], o[8], o[9], o[10], (float*)ws, A, K, T, d, G, C, R,
+      o[6], o[7], o[8], o[9], o[10], scratch, oplog, A, K, T, d, G, C, R,
       delta_scale);
-  return (int)cudaGetLastError();
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || !kMma) return rc;
+  return launch_wgrad(oplog, (long long)B * K * log_rows(A, T, R), d, C,
+                      o[4], o[5], stream);
 }
 
 }  // namespace
 }  // namespace desire
 
-// Float32 words of the device-memory workspace for B * K blocks.
+// Float32 words of the device-memory workspace for B * K blocks, with the
+// operand log where is_bf16 and d, C are multiples of 16 (the tensor-core
+// variant, as the launch picks it).
 extern "C" long long ioc_refine_bwd_ws_words(int B, int A, int K, int T,
                                              int d, int C, int R,
-                                             int social_freeze) {
-  return (long long)B * K
-         * (long long)desire::bwd_ws_words(A, T, d, C, R, social_freeze);
+                                             int social_freeze,
+                                             int is_bf16) {
+  return (long long)desire::bwd_total_words(
+      B, A, K, T, d, C, R, social_freeze, desire::bwd_mma(is_bf16, d, C));
+}
+
+// The partials of the input and hidden matrices' gradients that a launch
+// writes: with the tensor-core variant one per block of the weight-gradient
+// product's grid; 0 otherwise, where every backward block writes its own
+// (B * K of them).
+extern "C" int ioc_refine_bwd_wgrad_ctas(int B, int A, int K, int T, int d,
+                                         int C, int R, int is_bf16) {
+  if (!desire::bwd_mma(is_bf16, d, C)) return 0;
+  return desire::wg_ctas((long long)B * K * desire::log_rows(A, T, R),
+                         desire::WgShape(d, C).ch);
 }
 
 // Dynamic shared memory of one block (BwdLayout) at these shapes, with the
@@ -1727,8 +2037,8 @@ extern "C" long long ioc_refine_bwd_ws_words(int B, int A, int K, int T,
 // launch picks it; more than kMaxSmem fails the launch.
 extern "C" long long ioc_refine_bwd_smem_bytes(int A, int T, int d, int C,
                                                int G, int is_bf16) {
-  const bool mma = is_bf16 && d % 16 == 0 && C % 16 == 0;
-  return (long long)desire::BwdLayout(A, T, d, C, G, mma).total;
+  return (long long)desire::BwdLayout(A, T, d, C, G,
+                                     desire::bwd_mma(is_bf16, d, C)).total;
 }
 
 // The most agents a lane whose block (BwdLayout) fits in kMaxSmem at these
@@ -1753,9 +2063,12 @@ extern "C" int ioc_refine_bwd_max_agents(int T, int d, int C, int G,
 // out[11], float32: d_traj (B, A, K, T, 2), d_dec and d_msg (B, A, K, T, d),
 // then per-block partials (B * K, ...): feature map (G * G * C), wi
 // (F * 3d), wh (d * 3d), bi (3d), bh (3d), heads (d * 4), heads bias (4),
-// soc_logtau (1). ws: ioc_refine_bwd_ws_words(..., social_freeze) float32
-// words. CD is bfloat16 when is_bf16, else float32. social_freeze: the
-// social block is pooled at the initial positions in every pass. Returns
+// soc_logtau (1); with the tensor-core variant wi and wh hold
+// ioc_refine_bwd_wgrad_ctas partials instead, which the weight-gradient
+// product, launched after the backward kernel on the same stream, writes.
+// ws: ioc_refine_bwd_ws_words(..., social_freeze, is_bf16) float32 words.
+// CD is bfloat16 when is_bf16, else float32. social_freeze: the social
+// block is pooled at the initial positions in every pass. Returns
 // cudaGetLastError().
 extern "C" int ioc_refine_bwd_launch(int is_bf16, const void* const* in,
                                      void* const* out, void* ws, int B,
@@ -1768,8 +2081,7 @@ extern "C" int ioc_refine_bwd_launch(int is_bf16, const void* const* in,
                        in, out, ws, B, A, K, T, d, G, C, R, delta_scale, s) \
                  : desire::launch_bwd<CD, MMA, false>(                     \
                        in, out, ws, B, A, K, T, d, G, C, R, delta_scale, s))
-  if (is_bf16 && d % 16 == 0 && C % 16 == 0)
-    return DESIRE_BWD(__nv_bfloat16, true);
+  if (desire::bwd_mma(is_bf16, d, C)) return DESIRE_BWD(__nv_bfloat16, true);
   if (is_bf16) return DESIRE_BWD(__nv_bfloat16, false);
   return DESIRE_BWD(float, false);
 #undef DESIRE_BWD

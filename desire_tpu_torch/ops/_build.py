@@ -117,8 +117,10 @@ def _load():
     lib.ioc_refine_bwd_launch.argtypes = ([_I, _P, _P, _P] + [_I] * 9
                                           + [ctypes.c_float, _P])
     lib.ioc_refine_bwd_launch.restype = _I
-    lib.ioc_refine_bwd_ws_words.argtypes = [_I] * 8
+    lib.ioc_refine_bwd_ws_words.argtypes = [_I] * 9
     lib.ioc_refine_bwd_ws_words.restype = ctypes.c_longlong
+    lib.ioc_refine_bwd_wgrad_ctas.argtypes = [_I] * 8
+    lib.ioc_refine_bwd_wgrad_ctas.restype = _I
     lib.ioc_refine_bwd_smem_bytes.argtypes = [_I] * 6
     lib.ioc_refine_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.ioc_refine_bwd_max_agents.argtypes = [_I] * 5

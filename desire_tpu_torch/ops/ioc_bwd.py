@@ -7,10 +7,14 @@ kernel with ``collect_iters``) bound to the backward kernel
 The forward kernel saves only every pass's positions; the backward kernel
 recomputes each pass from them and returns the cotangents of the
 trajectories, dec_h, the social messages, the feature map and soc_logtau,
-and the gradients of the score GRU and the three heads. The messages are
-msg = dec_h Wmsg + bmsg; the chain back through that product into dec_h
-and the message weights is left to ``torch.matmul``, as the JAX wrapper
-leaves it to XLA. live and fut_mask are data and get no gradient.
+and the gradients of the score GRU and the three heads. In its tensor-core
+variant (bf16, d and C multiples of 16) it is two launches: the backward
+kernel logs every reverse step's bf16 operand tiles, and a second kernel
+forms the GRU's input and hidden matrices' gradients over the whole log.
+The messages are msg = dec_h Wmsg + bmsg; the chain back through that
+product into dec_h and the message weights is left to ``torch.matmul``,
+as the JAX wrapper leaves it to XLA. live and fut_mask are data and get no
+gradient.
 
 Under social_freeze the social block is pooled once, at the initial
 positions, and reused by every pass; the backward kernel then runs one
@@ -97,16 +101,29 @@ def pack_ioc_bwd(p_ioc, p_scf, compute_dtype, device):
             "ltau": wf(p_scf["soc_logtau"].reshape(1))}
 
 
-def bwd_workspace_words(b, a, k, t, d, c, r, social_freeze):
+def bwd_uses_mma(bf16, d, c):
+    """Whether the backward kernel takes its tensor-core variant (bf16, d
+    and C multiples of 16; ``bwd_mma`` of the kernel source), which logs
+    its operand tiles and forms the input and hidden matrices' gradients
+    in a second kernel."""
+    return bool(bf16) and d % 16 == 0 and c % 16 == 0
+
+
+def bwd_workspace_words(b, a, k, t, d, c, r, social_freeze, bf16):
     """Float32 words of the backward kernel's device-memory workspace, B * K
     blocks of: the GRU gates r, z, n and the hidden n-gate preactivation
     (T, A, 4d), the GRU states (T, A, d), the scene (T, A, C) and social
     (T, A, d) blocks, the heads' cotangents (T, A, 4) and every pass's
     scene cotangents (R + 1, T, A, C); under social_freeze also the two
-    social-cotangent buckets, (T, A, d) each (``bwd_ws_words`` of the
-    kernel source)."""
+    social-cotangent buckets, (T, A, d) each. Then, with the tensor-core
+    variant, B * K operand logs: every reverse step's rows, padded to 16
+    agents, of bf16 [X (C + 2d + 16) | h (d) | gate cotangents (4d)]
+    (``bwd_total_words`` of the kernel source)."""
     per_block = (t * a * (6 * d + c + 4) + (r + 1) * t * a * c
                  + (2 * t * a * d if social_freeze else 0))
+    if bwd_uses_mma(bf16, d, c):
+        rows = -(-a // 16) * 16
+        per_block += (r + 1) * t * rows * (c + 7 * d + 16) // 2
     return b * k * per_block
 
 
@@ -142,7 +159,10 @@ def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
     C) float32, the GRU gradients {wi, wh, bi, bh}, the head gradients
     {score, gate, delta} (each {w, b}), d soc_logtau ()). The weight and
     feature-map gradients are per-block partials summed here in a fixed
-    order: the result is bitwise reproducible."""
+    order: the result is bitwise reproducible. With the tensor-core variant
+    a second kernel (``ioc_bwd_wgrad_kernel``, counted as
+    ``ioc_bwd_wgrad``) forms wi's and wh's from the operand log that the
+    backward kernel writes, one partial a block of its fixed grid."""
     if not traj.is_cuda:
         raise ValueError("ioc_refine_bwd_cuda needs CUDA tensors")
     cd, dev = dec_h.dtype, traj.device
@@ -173,26 +193,33 @@ def ioc_refine_bwd_cuda(p_ioc, p_scf, traj, dec_h, msg, feat_map, live,
     ins = [traj, iters, dec_h, msg, feat_map, live, fut_mask,
            *(w[name] for name in _PACK_ORDER), d_refined, d_scores, d_iters]
     nb = b * k
-    z = lambda *shape: torch.empty(shape, dtype=_F32, device=dev)
-    outs = [z(b, a, k, t, 2), z(b, a, k, t, d), z(b, a, k, t, d),
-            z(nb, g * g * c), z(nb, f, 3 * d), z(nb, d, 3 * d), z(nb, 3 * d),
-            z(nb, 3 * d), z(nb, d, 4), z(nb, 4), z(nb)]
     lib = _build.library()
     freeze = int(bool(social_freeze))
-    words = bwd_workspace_words(b, a, k, t, d, c, r, freeze)
-    if words != lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r, freeze):
+    bf16 = int(cd == torch.bfloat16)
+    # the input and hidden matrices' partials: the product kernel's (with
+    # the tensor-core variant), else one a backward block
+    parts = lib.ioc_refine_bwd_wgrad_ctas(b, a, k, t, d, c, r, bf16) or nb
+    z = lambda *shape: torch.empty(shape, dtype=_F32, device=dev)
+    outs = [z(b, a, k, t, 2), z(b, a, k, t, d), z(b, a, k, t, d),
+            z(nb, g * g * c), z(parts, f, 3 * d), z(parts, d, 3 * d),
+            z(nb, 3 * d), z(nb, 3 * d), z(nb, d, 4), z(nb, 4), z(nb)]
+    words = bwd_workspace_words(b, a, k, t, d, c, r, freeze, bf16)
+    if words != lib.ioc_refine_bwd_ws_words(b, a, k, t, d, c, r, freeze,
+                                            bf16):
         raise RuntimeError("the workspace size disagrees with the kernel's")
     ws = z(words)
     ptr_in = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     ptr_out = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
     rc = lib.ioc_refine_bwd_launch(
-        int(cd == torch.bfloat16), ptr_in, ptr_out, ws.data_ptr(), b, a, k,
-        t, d, g, c, r, freeze, float(delta_scale),
+        bf16, ptr_in, ptr_out, ws.data_ptr(), b, a, k, t, d, g, c, r, freeze,
+        float(delta_scale),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"ioc_refine_bwd kernel launch failed: CUDA "
                            f"error {rc}")
     _build.LAUNCHES["ioc_refine_bwd"] += 1
+    if bwd_uses_mma(bf16, d, c):
+        _build.LAUNCHES["ioc_bwd_wgrad"] += 1
     d_traj, d_dec, d_msg, fm_p, wi_p, wh_p, bi_p, bh_p, hw_p, hb_p, lt_p = outs
     hw, hb = hw_p.sum(0), hb_p.sum(0)
     grads_gru = {"wi": wi_p.sum(0), "wh": wh_p.sum(0), "bi": bi_p.sum(0),

@@ -59,9 +59,9 @@ SETUP = "setup."
 # Launches of each kernel: every wrapper adds one where it launches its
 # kernel, and nowhere else (``ops._build`` and ``ops`` re-export it).
 LAUNCHES = {"sgm_sample": 0, "ioc_refine": 0, "ioc_refine_train": 0,
-            "ioc_refine_bwd": 0, "nll_fwd": 0, "nll_bwd": 0,
-            "scene_pool_fwd": 0, "scene_pool_bwd": 0, "grad_sumsq": 0,
-            "clip_adam": 0}
+            "ioc_refine_bwd": 0, "ioc_bwd_wgrad": 0, "nll_fwd": 0,
+            "nll_bwd": 0, "scene_pool_fwd": 0, "scene_pool_bwd": 0,
+            "grad_sumsq": 0, "clip_adam": 0}
 COUNTERS: dict[str, int] = {}
 
 

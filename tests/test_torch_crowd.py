@@ -120,11 +120,11 @@ def test_pack_ioc_refuses_129_agents_naming_the_limit():
 
 class _BwdLibrary:
     """The kernel library's two answers on BwdLayout, as the card's
-    library gives them at the flagship's widths (61 agents a lane)."""
+    library gives them at the flagship's widths (64 agents a lane)."""
 
     @staticmethod
     def ioc_refine_bwd_max_agents(t, d, c, g, bf16):
-        return 61
+        return 64
 
     @staticmethod
     def ioc_refine_bwd_smem_bytes(a, t, d, c, g, bf16):
@@ -132,7 +132,8 @@ class _BwdLibrary:
 
 
 @pytest.mark.parametrize("agents,fits", [(60, True), (61, True),
-                                         (62, False), (128, False)])
+                                         (64, True), (65, False),
+                                         (128, False)])
 def test_the_backward_layout_limit_is_named_before_any_launch(
         agents, fits, monkeypatch):
     """Past the agents BwdLayout holds, the check names the layout and
@@ -146,7 +147,7 @@ def test_the_backward_layout_limit_is_named_before_any_launch(
             ioc_bwd.check_bwd_agents(*args)
             return
         with pytest.raises(ValueError,
-                           match=r"BwdLayout.*at most 61 agents"):
+                           match=r"BwdLayout.*at most 64 agents"):
             ioc_bwd.check_bwd_agents(*args)
     finally:
         ioc_bwd.check_bwd_agents.cache_clear()

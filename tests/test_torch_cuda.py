@@ -323,14 +323,14 @@ def test_ioc_tensor_core_path_refuses_past_128_agents(cuda_device):
     (12, 48, 32, 32, 0)])
 def test_ioc_backward_agent_limit(cuda_device, t, d, c, g, bf16):
     """The library's most agents a lane is the last whose BwdLayout fits
-    a block: the check passes it and names it one agent past it (61 at
+    a block: the check passes it and names it one agent past it (64 at
     the flagship's widths)."""
     from desire_tpu_torch.ops import ioc_bwd
     lib = _build.library()
     most = lib.ioc_refine_bwd_max_agents(t, d, c, g, bf16)
     assert 0 < most < 4096
     if (t, d, c, g, bf16) == (12, 48, 32, 32, 1):
-        assert most == 61
+        assert most == 64
     sizes = [lib.ioc_refine_bwd_smem_bytes(a, t, d, c, g, bf16)
              for a in (1, most, most + 1)]
     assert sizes == sorted(sizes)
@@ -357,24 +357,25 @@ def test_train_step_past_the_backward_limit_raises_before_any_launch(
     mask = torch.ones((b, t, a), device=cuda_device)
     ids = torch.arange(1, a + 1, device=cuda_device).float().repeat(b, 1)
     launched = dict(_build.LAUNCHES)
-    with pytest.raises(ValueError, match="BwdLayout.*at most 61 agents"):
+    with pytest.raises(ValueError, match="BwdLayout.*at most 64 agents"):
         step_fn(state, xy, mask, ids)
     assert dict(_build.LAUNCHES) == launched
 
 
-def _ioc_train_case(cuda_device, dtype, c, a, d=16, seed=1):
+def _ioc_train_case(cuda_device, dtype, c, a, d=16, seed=1, t=6):
     cfg = _cfg(scene_channels=c, compute_dtype=dtype, max_num_obj=a,
-               d_dim=d)
+               d_dim=d, pred_len=t)
     cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     p = _params(cfg, cuda_device)
-    b, k, t = 2, 3, 6
+    b, k = 2, 3
     rng = np.random.default_rng(seed)
     f = lambda x, dt=torch.float32: torch.as_tensor(
         np.asarray(x, np.float32), device=cuda_device).to(dt)
     live = (rng.random((b, a)) > 0.3).astype(np.float32)
     live[:, 0] = 1.0
     fut = np.ones((b, a, t))
-    fut[:, :, -1] = 0.0
+    if t > 1:
+        fut[:, :, -1] = 0.0
     args = (f(rng.uniform(0.2, 0.8, (b, a, k, t, 2))),
             f(np.tanh(rng.standard_normal((b, a, k, t, d))), cd),
             f(rng.standard_normal((b, 8, 8, c)), cd), f(live), f(fut))
@@ -382,7 +383,8 @@ def _ioc_train_case(cuda_device, dtype, c, a, d=16, seed=1):
     return cfg, p, args, wts
 
 
-def _ioc_train_grads(p, args, wts, kernel, social_freeze=False):
+def _ioc_train_grads(p, args, wts, kernel, social_freeze=False,
+                     num_refine=2):
     """Gradients of the JAX kernel suite's IOC test loss for the inputs and
     every IOC and message parameter, through the kernels or autograd
     through the plain version."""
@@ -396,7 +398,7 @@ def _ioc_train_grads(p, args, wts, kernel, social_freeze=False):
     trees = tree_unflatten(trees, leaves)
     ins = [x.detach().clone().requires_grad_(True)
            for x in (traj, dec_h, fmap)]
-    kw = dict(num_refine=2, delta_scale=_DELTA_SCALE,
+    kw = dict(num_refine=num_refine, delta_scale=_DELTA_SCALE,
               social_freeze=social_freeze)
     if kernel:
         refined, scores, iters = ioc_bwd.ioc_refine_train(
@@ -463,13 +465,50 @@ def test_ioc_training_kernels_match_autograd(cuda_device, dtype, c, a, d,
 def test_ioc_backward_kernel_is_deterministic(cuda_device, social_freeze, c,
                                               a, d):
     """Two runs on the same inputs give bitwise-equal gradients (the
-    tensor-core variant at two sizes, and the CUDA-core one)."""
+    tensor-core variant at two sizes, and the CUDA-core one). The
+    tensor-core variant launches the weight-gradient product once a call,
+    the CUDA-core one never."""
     cfg, p, args, wts = _ioc_train_case(cuda_device, "bfloat16", c, a, d)
+    before = dict(_build.LAUNCHES)
     first = _ioc_train_grads(p, args, wts, kernel=True,
                              social_freeze=social_freeze)
     second = _ioc_train_grads(p, args, wts, kernel=True,
                               social_freeze=social_freeze)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+    calls = _build.LAUNCHES["ioc_refine_bwd"] - before["ioc_refine_bwd"]
+    assert calls == 2
+    assert _build.LAUNCHES["ioc_bwd_wgrad"] - before["ioc_bwd_wgrad"] \
+        == (calls if c % 16 == 0 and d % 16 == 0 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,a,d,t,r", [
+    (32, 60, 48, 12, 4),   # the flagship's widths, agents, steps and passes
+    (16, 37, 16, 6, 2),    # agents not a multiple of 16
+    (32, 5, 48, 1, 2),     # one step (and a last chunk of the log half full)
+    (16, 20, 32, 6, 1),    # one refine pass
+    (32, 20, 64, 6, 2)])   # more output tiles than the product has warps
+@pytest.mark.parametrize("social_freeze", [False, True])
+def test_ioc_backward_deferred_weight_gradients(cuda_device, c, a, d, t, r,
+                                                social_freeze):
+    """The tensor-core variant, whose input and hidden matrices' gradients
+    the product kernel forms after the passes from the operand log (one
+    launch a call), against autograd through the plain version, every
+    input and parameter leaf: the relative L2 error of
+    test_ioc_training_kernels_match_autograd."""
+    cfg, p, args, wts = _ioc_train_case(cuda_device, "bfloat16", c, a, d,
+                                        t=t)
+    before = dict(_build.LAUNCHES)
+    got = _ioc_train_grads(p, args, wts, kernel=True,
+                           social_freeze=social_freeze, num_refine=r)
+    assert all(_build.LAUNCHES[n] == before[n] + 1
+               for n in ("ioc_refine_bwd", "ioc_bwd_wgrad"))
+    ref = _ioc_train_grads(p, args, wts, kernel=False,
+                           social_freeze=social_freeze, num_refine=r)
+    for g, x in zip(got, ref):
+        g, x = g.float().cpu(), x.float().cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - x).norm() / max(float(x.norm()), 1e-30)) < 0.05
 
 
 @pytest.mark.cuda
@@ -477,13 +516,16 @@ def test_ioc_backward_kernel_is_deterministic(cuda_device, social_freeze, c,
     (2, 5, 3, 6, 16, 8, 2), (64, 60, 20, 12, 48, 32, 4),
     (3, 20, 7, 12, 32, 16, 1)])
 @pytest.mark.parametrize("social_freeze", [False, True])
-def test_ioc_backward_workspace_size(cuda_device, shape, social_freeze):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ioc_backward_workspace_size(cuda_device, shape, social_freeze,
+                                     bf16):
     """The workspace the wrapper allocates is what the kernel source
-    computes for itself."""
+    computes for itself (bf16 at widths multiples of 16: with the operand
+    log; C = 8: the CUDA-core variant, without)."""
     from desire_tpu_torch.ops import ioc_bwd
-    want = _build.library().ioc_refine_bwd_ws_words(*shape,
-                                                    int(social_freeze))
-    assert ioc_bwd.bwd_workspace_words(*shape, social_freeze) == want
+    want = _build.library().ioc_refine_bwd_ws_words(
+        *shape, int(social_freeze), int(bf16))
+    assert ioc_bwd.bwd_workspace_words(*shape, social_freeze, bf16) == want
 
 
 @pytest.mark.cuda

@@ -226,9 +226,12 @@ def test_backward_weight_pack_layouts(dtype):
 @pytest.mark.parametrize("b,a,k,t,d,c,r,freeze", [
     (2, 5, 3, 6, 16, 8, 2, False), (2, 5, 3, 6, 16, 8, 2, True),
     (64, 60, 20, 12, 48, 32, 4, False), (64, 60, 20, 12, 48, 32, 4, True)])
-def test_backward_workspace_words(b, a, k, t, d, c, r, freeze):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_workspace_words(b, a, k, t, d, c, r, freeze, bf16):
     """The workspace the wrapper allocates, region by region as the kernel
-    source lays it out, for B * K blocks."""
+    source lays it out, for B * K blocks; with the tensor-core variant
+    (bf16, d and C multiples of 16) every reverse step's operand tiles
+    besides, in bf16, half a float32 word an element."""
     regions = [t * a * 4 * d,            # gates r, z, n and the hidden n-gate
                t * a * d,                # GRU states
                t * a * c,                # scene blocks
@@ -237,5 +240,9 @@ def test_backward_workspace_words(b, a, k, t, d, c, r, freeze):
                (r + 1) * t * a * c]      # scene cotangents of every pass
     if freeze:
         regions += [t * a * d] * 2       # the two social-cotangent buckets
-    assert ioc_bwd.bwd_workspace_words(b, a, k, t, d, c, r, freeze) \
+    if bf16 and c % 16 == 0:
+        rows = 64 if a == 60 else 16     # agents padded to 16
+        # the operand log, [X (C + 2d + 16) | h (d) | R (4d)] a row
+        regions += [(r + 1) * t * rows * (c + 2 * d + 16 + d + 4 * d) // 2]
+    assert ioc_bwd.bwd_workspace_words(b, a, k, t, d, c, r, freeze, bf16) \
         == b * k * sum(regions)

@@ -396,3 +396,22 @@ def test_metrics_read_nothing_without_the_registry(monkeypatch):
     assert program_spans.span_ms("serve.assemble") is None
     assert program_spans.share_pct("serve.live_slots", "serve.slots") is None
     assert program_spans.setup_s() is None
+
+
+def test_deferred_share_reads_the_launch_counts(monkeypatch):
+    """``ioc_bwd_deferred_share``: the weight-gradient product's launches
+    over the IOC backward's, in %; nothing where the program counts no
+    such kernel (a program before it) or ran no backward."""
+    reader = harness._load(
+        os.path.join(harness.HERE, "metrics", "ioc_bwd_deferred_share.py"),
+        "benchmark_metric_ioc_bwd_deferred_share")
+    telemetry.reset()
+    assert reader.read({}) is None        # no backward call yet
+    ops.LAUNCHES["ioc_refine_bwd"] += 4
+    ops.LAUNCHES["ioc_bwd_wgrad"] += 3
+    assert reader.read({}) == pytest.approx(75.0)
+    monkeypatch.delitem(telemetry.LAUNCHES, "ioc_bwd_wgrad")
+    assert reader.read({}) is None        # a program without the kernel
+    monkeypatch.undo()
+    telemetry.reset()
+    assert ops.LAUNCHES["ioc_bwd_wgrad"] == 0
